@@ -6,9 +6,13 @@ CUDA toolkit's nvcc on PATH or under /usr/local/cuda):
     python3 chip_smoke.py
 
 Phases, each of which fails the run with a non-zero exit on any check:
-  1. build the hand-written kernels from svision_tpu_torch/csrc/ with nvcc;
+  1. build the hand-written kernels from svision_tpu_torch/csrc/ with nvcc
+     (and K3 without its dark-step skip, as a yardstick), check that the
+     bf16 K3 runs on tensor cores (HGMMA in its SASS), and build the native
+     BAM decoder the CLI reads with;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     engine's batch of 128 and in both dtypes, and time both;
+     engine's batch of 128 and in both dtypes, and time both; K3 bf16 also
+     at batches of 1, 129 and 8,192 and on an all-dark batch;
   3. run the InferenceEngine on 8,192 specs in both numeric modes against
      an engine whose kernels are swapped for their plain versions, then
      profile one call in each mode (device time by kernel, idle share);
@@ -112,6 +116,56 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# ---------------------------------------------------------------------------
+# phase 1: builds
+# ---------------------------------------------------------------------------
+
+K3_SKIP_LINE = "        if (!((steps >> s) & 1)) continue;\n"
+
+
+def start_dense_k3_build(build_dir: str):
+    """Start nvcc on a copy of csrc/conv1_raster.cu without the line that
+    skips dark K steps: the same kernel multiplying every K step, the
+    yardstick for that skip. Returns (process, library path)."""
+    from svision_tpu_torch.ops import _kernels
+    with open(os.path.join(_kernels._CSRC, "conv1_raster.cu")) as f:
+        src = f.read()
+    assert src.count(K3_SKIP_LINE) == 1, "K3's dark-step skip line moved"
+    os.makedirs(build_dir, exist_ok=True)
+    for name in _kernels._HEADERS:
+        with open(os.path.join(_kernels._CSRC, name)) as f, \
+                open(os.path.join(build_dir, name), "w") as g:
+            g.write(f.read())
+    cu = os.path.join(build_dir, "conv1_raster_dense.cu")
+    with open(cu, "w") as f:
+        f.write(src.replace(K3_SKIP_LINE, ""))
+    lib = os.path.join(build_dir, "libconv1_raster_dense.so")
+    proc = subprocess.Popen([_kernels._nvcc(), *_kernels._FLAGS, "-o", lib, cu],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, lib
+
+
+def ptxas_by_kernel(log_path: str) -> dict:
+    """{kernel: [register line, spill line]} from a ptxas -v log."""
+    out, name = {}, None
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif name and ("registers" in line or "spill" in line):
+                out.setdefault(name, []).append(line.strip())
+    return out
+
+
+def hgmma_count(lib: str) -> int:
+    """HGMMA (wgmma) instructions in a library's SASS, from cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(" HGMMA." in l for l in sass.splitlines())
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel of the engine's path for its plain PyTorch version
@@ -135,7 +189,27 @@ def plain_kernels():
 # phase 2: each kernel against its plain version at B=128
 # ---------------------------------------------------------------------------
 
-def check_kernels(params) -> dict:
+def k3_from(lib: str):
+    """K3's C entry point in another build of csrc/conv1_raster.cu, called
+    like the wrapper (bf16 only)."""
+    import ctypes
+    import torch
+    from svision_tpu_torch.ops import _kernels
+    fn = ctypes.CDLL(lib).svt_conv1_fused_raster
+    fn.argtypes = _kernels.ENTRIES["svt_conv1_fused_raster"][1]
+    fn.restype = ctypes.c_int
+
+    def call(ep, vis, rev, w):
+        out = torch.empty((ep.shape[0], 55, 55, 96), dtype=w.dtype,
+                          device=ep.device)
+        err = fn(ep.data_ptr(), vis.data_ptr(), rev.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), ep.shape[0], 1, _kernels.stream_of(ep))
+        assert err == 0, f"{lib}: launch failed with CUDA error {err}"
+        return out
+    return call
+
+
+def check_kernels(params, dense_k3) -> dict:
     import torch
     import torch.nn.functional as F
     from svision_tpu_torch.infer.engine import exact_f32
@@ -217,6 +291,9 @@ def check_kernels(params) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             scale = want.float().abs().max().item()
             assert err <= tol * scale, f"K3 {kind}: {err} > {tol} * {scale}"
+            dark = fused_conv1.conv1_fused_raster(
+                torch.zeros_like(ep), torch.zeros_like(vis), rev, w)
+            assert dark.count_nonzero().item() == 0, f"K3 {kind}: all-dark != 0"
             # the work this run's data needs: the lit predicate taps only
             # (the predicate is built on chip, so dark taps need no work);
             # the dense implicit GEMM, [N*55*55, 432] x [432, 96], is kept
@@ -237,8 +314,62 @@ def check_kernels(params) -> dict:
                 lit_fraction=lit.count_nonzero().item() / lit.numel(),
                 cudnn_conv2d_on_s2d_raster_ms=time_ms(
                     lambda: F.conv2d(r_nchw, w_oihw))))
+        if kind == "bf16":
+            variants[-1].update(k3_bf16_checks(dense_k3, (ep, vis, rev), w,
+                                               lit, got))
         log(f"K3 conv1_fused_raster {kind}: ok, {variants[-1]}")
     out["conv1_fused_raster"] = variants
+    return out
+
+
+def k3_bf16_checks(dense_k3, seg, w, lit, got) -> dict:
+    """K3 bf16 beyond batch 128: other batch sizes against the plain
+    version (the ragged split over the SMs and a partial last wave), the
+    share of K steps that hold a lit value, and the kernel timed in turns
+    against its copy without the dark-step skip (which must agree bit for
+    bit)."""
+    import torch
+    from svision_tpu_torch.ops import fused_conv1, rasterize
+    dev = w.device
+    out = {}
+    # a K step is one image channel at one tap over an 8 x 8 output tile
+    n = lit.shape[0]
+    pad = torch.zeros((n, 58, 58, 48), device=dev)
+    pad[:, :57, :57] = lit
+    lit_steps = sum((pad[:, dr:dr + 56, dc:dc + 56]
+                     .reshape(n, 7, 8, 7, 8, 3, 16).amax(dim=(2, 4, 6)) > 0)
+                    .sum().item() for dr in range(3) for dc in range(3))
+    out["lit_kstep_fraction"] = lit_steps / (n * 49 * 27)
+
+    dense = dense_k3(*seg, w)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, got), "K3 bf16: the dense copy disagrees"
+    t = [time_ms(lambda: f(*seg, w)) for f in
+         (fused_conv1.conv1_fused_raster, dense_k3, dense_k3,
+          fused_conv1.conv1_fused_raster)]
+    out.update(ms_in_turns=(t[0] + t[3]) / 2, dense_ms=(t[1] + t[2]) / 2)
+
+    batches = []
+    for b in (1, 129, 8192):
+        specs = random_specs(b, seed=5)
+        k = min(b, len(DEGENERATE))
+        specs[:k] = np.array(DEGENERATE, np.int64)[:k]
+        ep, vis, rev = (torch.from_numpy(a).to(dev)
+                        for a in rasterize.specs_to_endpoints(specs))
+        y = fused_conv1.conv1_fused_raster(ep, vis, rev, w)
+        err = scale = 0.0
+        for i in range(0, b, 1024):       # the plain version in chunks
+            want = fused_conv1.conv1_fused_raster_plain(
+                ep[i:i + 1024], vis[i:i + 1024], rev[i:i + 1024], w).float()
+            err = max(err, (y[i:i + 1024].float() - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+        assert err <= 1e-2 * scale, f"K3 bf16 B={b}: {err} > 1e-2 * {scale}"
+        batches.append(dict(
+            batch=b, max_abs_err=err, max_abs_out=scale,
+            ms=time_ms(lambda: fused_conv1.conv1_fused_raster(ep, vis, rev, w),
+                       reps=5 if b > B else 20)))
+        del y
+    out["batches"] = batches
     return out
 
 
@@ -442,7 +573,7 @@ def check_cli(params, work: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
-def kernel_line(kernels: dict, cli_out: dict) -> dict:
+def kernel_line(kernels: dict, cli_out: dict, build: dict) -> dict:
     info = {
         "render_raster": ("svision_tpu_torch/csrc/raster.cu",
                           "svision_tpu/ops/pallas_raster.py:108", "f32", None),
@@ -468,7 +599,9 @@ def kernel_line(kernels: dict, cli_out: dict) -> dict:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, at=dict(dtype=dtype, shape=main["shape"]),
-            variants=kernels[name]))
+            variants=kernels[name], ptxas=build["ptxas"][src]))
+        if name == "conv1_fused_raster":
+            rows[-1]["hgmma_in_sass"] = build["k3_hgmma"]
     return {"kernels": rows}
 
 
@@ -499,17 +632,36 @@ def main(argv=None) -> int:
                             torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    libs = _kernels.build()
-    REPORT["build_s"] = time.perf_counter() - t0
-    log(f"phase 1: built {sorted(libs)} in {REPORT['build_s']:.1f} s")
+    dense_proc, dense_lib = start_dense_k3_build(
+        os.path.join(ROOT, "build", "k3_dense"))
+    try:
+        libs = _kernels.build()
+    finally:
+        dense_log = dense_proc.communicate()[0].decode(errors="replace")
+    assert dense_proc.returncode == 0, f"dense K3 build failed:\n{dense_log}"
+    build = dict(build_s=time.perf_counter() - t0, ptxas={})
+    log(f"phase 1: built {sorted(libs)} and K3 without its dark-step skip "
+        f"in {build['build_s']:.1f} s")
     for src, path in sorted(libs.items()):
-        if os.path.exists(path + ".log"):
-            for line in open(path + ".log"):
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas {src}: {line.strip()}")
+        # ptxas's register and spill lines, per kernel (the library's name
+        # carries a hash of its sources)
+        build["ptxas"][f"svision_tpu_torch/csrc/{src}"] = found = \
+            ptxas_by_kernel(path + ".log")
+        for kernel, lines in found.items():
+            for line in lines:
+                log(f"  ptxas {src} {kernel}: {line}")
+    build["k3_hgmma"] = hgmma_count(libs["conv1_raster.cu"])
+    assert build["k3_hgmma"] > 0, "K3: no HGMMA (wgmma) in its SASS"
+    log(f"  K3 SASS: {build['k3_hgmma']} HGMMA instructions")
+    from svision_tpu_torch.io import native_io
+    t0 = time.perf_counter()
+    assert native_io.ensure_built(), "the native BAM decoder did not build"
+    build["native_io_build_s"] = time.perf_counter() - t0
+    log(f"  native BAM decoder built in {build['native_io_build_s']:.1f} s")
+    REPORT["build"] = build
 
     params = init_params(0)
-    REPORT["kernels"] = check_kernels(params)
+    REPORT["kernels"] = check_kernels(params, k3_from(dense_lib))
     log("phase 2: kernels agree with their plain versions")
     REPORT["engine"] = check_engine(params)
     log("phase 3: engine agrees with the all-plain engine")
@@ -519,7 +671,7 @@ def main(argv=None) -> int:
     log("phase 4: CLI path ok")
     REPORT["total_s"] = time.perf_counter() - t_all
 
-    line = kernel_line(REPORT["kernels"], REPORT["cli"])
+    line = kernel_line(REPORT["kernels"], REPORT["cli"], build)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

@@ -8,8 +8,10 @@ with the folded weights), which a CPU tensor goes to. A CUDA tensor
 launches the kernel or raises. It is the first layer of the engine's bf16
 path: the predicate never reaches device memory.
 
-Bound on an H100 at B=128: 32.1 GFLOP, 32 us on bf16 tensor cores; the bf16
-output is 74.3 MB, 22 us at 3.35 TB/s.
+bf16 runs as a wgmma (tensor-core) implicit GEMM; f32, which no main path
+reaches, on CUDA-core FMAs. Bound on an H100 at B=128: bytes, the 74.3 MB
+bf16 output, 22 us at 3.35 TB/s; the dense GEMM, 32.1 GFLOP, would take
+32 us on bf16 tensor cores.
 """
 
 from __future__ import annotations

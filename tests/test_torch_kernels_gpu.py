@@ -64,16 +64,56 @@ def test_pool_lrn_kernel(cuda, dtype, h, c):
         assert ((got - want).abs() <= ulp).all()
 
 
+def _batch(dev, n):
+    """n random candidate specs (mixed scales and strands) with SPECS, the
+    degenerate ones, in front."""
+    rng = np.random.RandomState(n)
+    specs = np.zeros((n, 12), np.int64)
+    read_len = rng.randint(150, 9000, n)
+    ref_len = rng.randint(150, 9000, n)
+    for k, length in ((0, read_len), (5, read_len), (2, ref_len), (7, ref_len)):
+        specs[:, k] = rng.randint(0, 1 << 30, n) % (length // 2)
+        specs[:, k + 1] = specs[:, k] + rng.randint(2, length // 2 + 2)
+    specs[:, 4] = 1
+    specs[:, 9] = rng.randint(0, 2, n)
+    specs[:, 10], specs[:, 11] = read_len, ref_len
+    k = min(n, len(SPECS))
+    specs[:k] = SPECS[:k]
+    return [torch.from_numpy(a).to(dev)
+            for a in rasterize.specs_to_endpoints(specs)]
+
+
+def _conv1_inputs(dev, case):
+    if case == "degenerate":
+        return _segments(dev)
+    if case == "all-dark":          # no visible segment: exactly 0 out
+        off = torch.zeros((300, 2), dtype=torch.bool, device=dev)
+        return [torch.zeros((300, 2, 4), dtype=torch.int32, device=dev),
+                off, off]
+    if case == "sentinel":          # the engine's padding spec alone
+        return [torch.from_numpy(a).to(dev) for a in
+                rasterize.specs_to_endpoints(np.repeat(SPECS[-1:], 200, 0))]
+    return _batch(dev, case)
+
+
+@pytest.mark.parametrize("case", ["degenerate", "all-dark", "sentinel",
+                                  1, 7, 128, 129, 1000])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-def test_conv1_kernel(cuda, dtype, tol):
+def test_conv1_kernel(cuda, dtype, tol, case):
+    """Batch sizes that split unevenly over the SMs, with a partial last
+    wave, and batches with nothing or almost nothing lit; one launch per
+    call."""
     from svision_tpu_torch.infer.engine import exact_f32
-    seg = _segments(cuda)
+    seg = _conv1_inputs(cuda, case)
     w = torch.from_numpy(fold_conv1_params(init_params(0))["conv1/weights"])
     w = w.to(cuda, dtype)
     with exact_f32():
+        before = fused_conv1.conv1_fused_raster.launches
         got = fused_conv1.conv1_fused_raster(*seg, w).float()
+        assert fused_conv1.conv1_fused_raster.launches == before + 1
         want = fused_conv1.conv1_fused_raster_plain(*seg, w).float()
+    assert got.shape == want.shape
     assert (got - want).abs().max() <= tol * want.abs().max()
 
 
