@@ -41,6 +41,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 128                      # the engine's batch
+# back-to-back calls of a plain version of K1 or K3, which launches tens of
+# ops a call: 20 calls of them outlast the device sleep of held_queue
+PLAIN_REPS = 5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; f32 FMA
 REPORT = {}
@@ -87,21 +90,76 @@ DEGENERATE = [
 ]
 
 
+@contextlib.contextmanager
+def held_queue(sleep_cycles: int = 500_000_000):
+    """Enqueue the block's work behind a device sleep. A kernel shorter
+    than the host's time to enqueue it would otherwise find the queue
+    empty, and its events would time the host. Fails if the host took
+    longer to enqueue than the device slept. Yields a dict that gets
+    host_ms, the time the host took to enqueue."""
+    import torch
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(sleep_cycles)
+    b.record()
+    info = {}
+    t0 = time.perf_counter()
+    yield info
+    info["host_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    slept = a.elapsed_time(b)
+    assert info["host_ms"] < slept, (
+        f"the host enqueued for {info['host_ms']:.1f} ms, longer than the "
+        f"device slept ({slept:.1f} ms): the times would include host gaps")
+
+
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() in ms over reps launches (CUDA events),
-    after two warm-up calls."""
+    """Mean device time of fn() in ms over reps launches run back to back
+    (CUDA events, the queue held), after two warm-up calls."""
     import torch
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with held_queue():
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
     return start.elapsed_time(end) / reps
+
+
+def spread_ms(fns, reps: int = 50) -> dict:
+    """min / median / max device time in ms of reps single launches, each
+    between its own pair of CUDA events, the queue held. Launch i calls
+    fns[i % len(fns)]: one function reads warm caches, several on distinct
+    buffers that together exceed the 50 MB L2 read a cold one."""
+    import statistics
+    import torch
+    for f in fns:
+        f()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    with held_queue() as info:
+        for i, (a, b) in enumerate(ev):
+            a.record()
+            fns[i % len(fns)]()
+            b.record()
+    t = [a.elapsed_time(b) for a, b in ev]
+    return dict(min=min(t), median=statistics.median(t), max=max(t),
+                host_us_per_launch=info["host_ms"] / reps * 1e3)
+
+
+def best_rate(eng, specs, calls: int = 3) -> float:
+    """Images/s of a warmed-up engine on specs: the best of `calls` timed
+    predict_specs calls (host clock)."""
+    best = 0.0
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        eng.predict_specs(specs)
+        best = max(best, specs.shape[0] / (time.perf_counter() - t0))
+    return best
 
 
 def bound_ms(nbytes: float, flops: float, kind: str):
@@ -214,7 +272,7 @@ def check_kernels(params, dense_k3) -> dict:
     import torch.nn.functional as F
     from svision_tpu_torch.infer.engine import exact_f32
     from svision_tpu_torch.models.alexnet import fold_conv1_params
-    from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, rasterize
+    from svision_tpu_torch.ops import fused_conv1, rasterize
     from svision_tpu_torch.ops import raster_kernel
 
     dev = torch.device("cuda")
@@ -237,40 +295,13 @@ def check_kernels(params, dense_k3) -> dict:
         variants.append(dict(
             dtype=kind, shape=list(got.shape), max_abs_err=err,
             ms=time_ms(lambda: raster_kernel.render_raster(ep, vis, rev, dtype=dt)),
-            plain_ms=time_ms(lambda: rasterize.render_raster(ep, vis, rev, dtype=dt)),
+            plain_ms=time_ms(lambda: rasterize.render_raster(ep, vis, rev, dtype=dt),
+                             reps=PLAIN_REPS),
             bound_ms=b, bound_by=by))
         log(f"K1 render_raster {kind}: bit-exact, {variants[-1]}")
     out["render_raster"] = variants
 
-    # K2: f32 within 1e-5 relative, bf16 within one bf16 ulp
-    gen = torch.Generator(device=dev).manual_seed(2)
-    variants = []
-    for h, c, tail in ((55, 96, "conv1"), (27, 256, "conv2")):
-        x32 = torch.randn((B, h, h, c), generator=gen, device=dev) * 2
-        bias32 = torch.randn((c,), generator=gen, device=dev)
-        for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            x, bias = x32.to(dt), bias32.to(dt)
-            got = fused_pool_lrn.bias_relu_pool_lrn(x, bias)
-            want = fused_pool_lrn.bias_relu_pool_lrn_plain(x, bias)
-            torch.cuda.synchronize()
-            g, w = got.float(), want.float()
-            err = (g - w).abs().max().item()
-            if kind == "f32":
-                ok = ((g - w).abs() <= 1e-5 * w.abs() + 1e-6).all().item()
-            else:
-                ulp = torch.pow(2.0, torch.floor(torch.log2(
-                    w.abs().clamp_min(2.0 ** -126))) - 7)
-                ok = ((g - w).abs() <= ulp).all().item()
-            assert ok, f"K2 {tail} {kind}: max abs err {err}"
-            flops = 40.0 * got.numel()   # add/max x9, LRN window and power
-            b, by = bound_ms(nbytes(x, bias, got), flops, "f32")
-            variants.append(dict(
-                tail=tail, dtype=kind, shape=list(x.shape), max_abs_err=err,
-                ms=time_ms(lambda: fused_pool_lrn.bias_relu_pool_lrn(x, bias)),
-                plain_ms=time_ms(lambda: fused_pool_lrn.bias_relu_pool_lrn_plain(x, bias)),
-                bound_ms=b, bound_by=by))
-            log(f"K2 bias_relu_pool_lrn {tail} {kind}: ok, {variants[-1]}")
-    out["bias_relu_pool_lrn"] = variants
+    out["bias_relu_pool_lrn"] = check_pool_lrn()
 
     # K3: f32 within 1e-4 of max|out|, bf16 within 1e-2 of max|out|
     w32 = torch.from_numpy(fold_conv1_params(params)["conv1/weights"]).to(dev)
@@ -309,7 +340,8 @@ def check_kernels(params, dense_k3) -> dict:
                 dtype=kind, shape=list(got.shape), max_abs_err=err,
                 max_abs_out=scale,
                 ms=time_ms(lambda: fused_conv1.conv1_fused_raster(ep, vis, rev, w)),
-                plain_ms=time_ms(lambda: fused_conv1.conv1_fused_raster_plain(ep, vis, rev, w)),
+                plain_ms=time_ms(lambda: fused_conv1.conv1_fused_raster_plain(ep, vis, rev, w),
+                                 reps=PLAIN_REPS),
                 bound_ms=b, bound_by=by, dense_gemm_bound_ms=dense_b,
                 lit_fraction=lit.count_nonzero().item() / lit.numel(),
                 cudnn_conv2d_on_s2d_raster_ms=time_ms(
@@ -320,6 +352,60 @@ def check_kernels(params, dense_k3) -> dict:
         log(f"K3 conv1_fused_raster {kind}: ok, {variants[-1]}")
     out["conv1_fused_raster"] = variants
     return out
+
+
+def check_pool_lrn(cold_buffers: int = 4) -> list:
+    """K2 at both tails and in both dtypes, B=128: f32 within 1e-5
+    relative and bf16 within one bf16 ulp of the plain version. Times: the
+    mean of back-to-back launches (ms), and the spread of single launches
+    with warm caches (one input) and with a cold L2 (cold_buffers inputs
+    in turn). A torch copy_ that moves the kernel's byte count (half read,
+    half written), timed cold the same way, is context for the memory rate
+    reached; nothing on the port's path calls it."""
+    import torch
+    from svision_tpu_torch.ops import fused_pool_lrn
+    dev = torch.device("cuda")
+    k2, plain = (fused_pool_lrn.bias_relu_pool_lrn,
+                 fused_pool_lrn.bias_relu_pool_lrn_plain)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    variants = []
+    for h, c, tail in ((55, 96, "conv1"), (27, 256, "conv2")):
+        x32 = torch.randn((B, h, h, c), generator=gen, device=dev) * 2
+        bias32 = torch.randn((c,), generator=gen, device=dev)
+        for dt, kind in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, bias = x32.to(dt), bias32.to(dt)
+            got = k2(x, bias)
+            want = plain(x, bias)
+            torch.cuda.synchronize()
+            g, w = got.float(), want.float()
+            err = (g - w).abs().max().item()
+            if kind == "f32":
+                ok = ((g - w).abs() <= 1e-5 * w.abs() + 1e-6).all().item()
+            else:
+                ulp = torch.pow(2.0, torch.floor(torch.log2(
+                    w.abs().clamp_min(2.0 ** -126))) - 7)
+                ok = ((g - w).abs() <= ulp).all().item()
+            assert ok, f"K2 {tail} {kind}: max abs err {err}"
+            moved = nbytes(x, bias, got)
+            flops = 40.0 * got.numel()   # add/max x9, LRN window and power
+            b, by = bound_ms(moved, flops, "f32")
+            xs = [x] + [x.clone() for _ in range(cold_buffers - 1)]
+            src = [torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+                   for _ in range(cold_buffers)]
+            dst = torch.empty_like(src[0])
+            variants.append(dict(
+                tail=tail, dtype=kind, shape=list(x.shape), max_abs_err=err,
+                bit_equal=bool(torch.equal(got, want)),
+                ms=time_ms(lambda: k2(x, bias)),
+                warm_ms=spread_ms([lambda: k2(x, bias)]),
+                cold_ms=spread_ms([lambda xi=xi: k2(xi, bias) for xi in xs]),
+                plain_ms=time_ms(lambda: plain(x, bias)),
+                bound_ms=b, bound_by=by, bytes_moved=moved,
+                context_copy_cold_ms=spread_ms(
+                    [lambda s=s: dst.copy_(s) for s in src])))
+            log(f"K2 bias_relu_pool_lrn {tail} {kind}: ok, {variants[-1]}")
+            del xs, src, dst
+    return variants
 
 
 def k3_bf16_checks(dense_k3, seg, w, lit, got) -> dict:
@@ -381,17 +467,29 @@ def check_engine(params) -> dict:
     import torch
     from svision_tpu_torch.infer.engine import InferenceEngine
 
+    from svision_tpu_torch.models import alexnet
+
     specs = random_specs(8192, seed=3)
     out = {}
     for mode, bf16 in (("bf16", True), ("exact", False)):
         eng = InferenceEngine(params, batch_size=B, bf16=bf16)
         eng.warmup()
+        # K2 copies nothing: both of its inputs on the engine's path (conv1's
+        # and conv2's outputs, NHWC) must already be contiguous
+        k2, seen = alexnet.bias_relu_pool_lrn, []
+
+        def recording(x, b):
+            seen.append((tuple(x.shape), x.is_contiguous()))
+            return k2(x, b)
+        alexnet.bias_relu_pool_lrn = recording
+        try:
+            eng.predict_specs(specs[:B])
+        finally:
+            alexnet.bias_relu_pool_lrn = k2
+        assert len(seen) == 2 and all(c for _, c in seen), \
+            f"{mode} engine: K2 inputs (shape, contiguous) {seen}"
         p, s = eng.predict_specs(specs)
-        best = 0.0
-        for _ in range(3):
-            t0 = time.perf_counter()
-            eng.predict_specs(specs)
-            best = max(best, specs.shape[0] / (time.perf_counter() - t0))
+        best = best_rate(eng, specs)
         with plain_kernels():
             pp, ps = eng.predict_specs(specs)
             t0 = time.perf_counter()
@@ -406,6 +504,7 @@ def check_engine(params) -> dict:
             assert soft_err <= 1e-4, f"exact engine: softmax err {soft_err}"
         assert np.isfinite(s).all() and ((s > 0) & (s <= 1)).all()
         out[mode] = dict(images_per_s=best, plain_images_per_s=plain_rate,
+                         k2_inputs_contiguous=seen,
                          argmax_agreement=agree, max_softmax_err=soft_err,
                          n=int(specs.shape[0]), batch=B)
         log(f"engine {mode} ({REPORT['device']['nvidia_smi']}): {out[mode]}")
@@ -417,7 +516,9 @@ def check_engine(params) -> dict:
 def profile_engine(params, n: int = 2048) -> dict:
     """Device time per batch by kernel, and the device's idle share, for
     one predict_specs call of n specs in each mode (torch.profiler; the
-    profiler's own overhead widens the idle share)."""
+    profiler's own overhead widens the idle share). The device is busy for
+    the union of its kernels' and copies' intervals: copies overlap
+    kernels, so the sum of their times may exceed the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -442,14 +543,23 @@ def profile_engine(params, n: int = 2048) -> dict:
             if us is None:
                 us = e.self_cuda_time_total
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-        busy_ms = sum(per_kernel.values())
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type == DeviceType.CUDA)
+        assert spans, f"profile {mode}: no device activity traced"
+        busy_us, last = 0.0, float("-inf")
+        for start, end in spans:
+            if end > last:
+                busy_us += end - max(start, last)
+                last = end
+        busy_ms = busy_us / 1e3
         assert busy_ms <= wall_ms, (
             f"profile {mode}: {busy_ms} ms on the device > {wall_ms} ms wall")
         batches = n // B
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:16]
         out[mode] = dict(
             wall_ms_per_batch=wall_ms / batches,
             device_ms_per_batch=busy_ms / batches,
+            device_time_sum_ms_per_batch=sum(per_kernel.values()) / batches,
             idle_share=1.0 - busy_ms / wall_ms,
             top_kernels_ms_per_batch={k[:120]: v / batches for k, v in top})
         log(f"profile {mode}: {wall_ms / batches:.3f} ms/batch wall, "
@@ -599,6 +709,7 @@ def kernel_line(kernels: dict, cli_out: dict, build: dict) -> dict:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, at=dict(dtype=dtype, shape=main["shape"]),
+            **{k: main[k] for k in ("warm_ms", "cold_ms") if k in main},
             variants=kernels[name], ptxas=build["ptxas"][src]))
         if name == "conv1_fused_raster":
             rows[-1]["hgmma_in_sass"] = build["k3_hgmma"]

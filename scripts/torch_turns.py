@@ -1,0 +1,117 @@
+"""The port's engine rate and K2 times for a parent and a change checkout,
+in alternating pairs, on one CUDA GPU.
+
+    python3 scripts/torch_turns.py PARENT CHANGE [--pairs 10] [--out FILE]
+
+PARENT and CHANGE are checkouts holding svision_tpu_torch/. Each pair runs
+one measuring process per checkout, the parent first in even pairs and the
+change first in odd ones. A process builds its checkout's kernels into
+CHECKOUT/build/ and measures with this checkout's chip_smoke.py on the
+other checkout's package:
+- the InferenceEngine's images/s in bf16 and in exact mode on
+  chip_smoke.random_specs(8192, seed=3), batch 128, seed-0 weights, the
+  best of 3 calls after a warm-up (chip_smoke.best_rate);
+- K2's times through the checkout's own wrapper (chip_smoke.check_pool_lrn):
+  back to back, and the cold-L2 median of single launches.
+The summary gives, per metric, each side's median, the parent's spread
+(the distance between its quartiles), and the pairs the change won. It
+calls a gain only where the change won at least 9 pairs in 10 and the
+medians differ by more than the parent's spread.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "chip_smoke.py")
+
+
+def measure(root: str) -> dict:
+    """One process's measurements, with root's package."""
+    import importlib.util
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+    import svision_tpu_torch
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from svision_tpu_torch.models.alexnet import init_params
+    pkg = os.path.dirname(os.path.abspath(svision_tpu_torch.__file__))
+    assert os.path.dirname(pkg) == root, pkg
+    specs, params, out = smoke.random_specs(8192, seed=3), init_params(0), {}
+    for mode, bf16 in (("bf16", True), ("exact", False)):
+        eng = InferenceEngine(params, batch_size=smoke.B, bf16=bf16)
+        eng.warmup()
+        eng.predict_specs(specs)
+        out[f"engine {mode} images/s"] = smoke.best_rate(eng, specs)
+        del eng
+        torch.cuda.empty_cache()
+    for v in smoke.check_pool_lrn():
+        out[f"K2 {v['tail']} {v['dtype']} ms"] = v["ms"]
+        out[f"K2 {v['tail']} {v['dtype']} cold median ms"] = v["cold_ms"]["median"]
+    return out
+
+
+def summary(pairs: list) -> dict:
+    out = {}
+    for key in pairs[0]["parent"]:
+        a = [p["parent"][key] for p in pairs]
+        b = [p["change"][key] for p in pairs]
+        higher = key.endswith("images/s")
+        won = sum((y > x) if higher else (y < x) for x, y in zip(a, b))
+        q = statistics.quantiles(a, n=4)
+        spread = q[2] - q[0]
+        ma, mb = statistics.median(a), statistics.median(b)
+        out[key] = dict(parent_median=ma, change_median=mb,
+                        parent_spread=spread, change_won=won, pairs=len(a),
+                        gain=won >= 0.9 * len(a) and abs(mb - ma) > spread
+                        and (mb > ma) == higher)
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--measure"]:
+        print(json.dumps(measure(os.path.abspath(argv[1]))))
+        return 0
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent", help="the parent's checkout")
+    ap.add_argument("change", help="the change's checkout")
+    ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--out", help="write the results as JSON here")
+    args = ap.parse_args(argv)
+    pairs = []
+    for i in range(args.pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        pair = dict(first=order[0])
+        for side in order:
+            root = os.path.abspath(getattr(args, side))
+            done = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--measure", root],
+                cwd=root, capture_output=True, text=True)
+            if done.returncode != 0:
+                print(done.stdout + done.stderr, file=sys.stderr)
+                return 1
+            pair[side] = json.loads(done.stdout.splitlines()[-1])
+        pairs.append(pair)
+        print(json.dumps(pair), flush=True)
+    result = dict(parent=os.path.abspath(args.parent),
+                  change=os.path.abspath(args.change), pairs=pairs,
+                  summary=summary(pairs))
+    print(json.dumps(result["summary"], indent=1), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 ENTRIES = {
     "svt_render_raster": ("raster.cu", [_P, _P, _P, _P, _I, _I, _P]),
     "svt_bias_relu_pool_lrn": ("pool_lrn.cu",
-                               [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                               [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_conv1_fused_raster": ("conv1_raster.cu",
                                [_P, _P, _P, _P, _P, _I, _I, _P]),
 }

@@ -12,7 +12,9 @@ F.local_response_norm's, which divides alpha by the window size. Math is
 f32 inside with one rounding at the output.
 
 Bound on an H100 at B=128 in bf16: 92.3 MB moved at conv1 (27.5 us at
-3.35 TB/s), 58.9 MB at conv2 (17.6 us); twice that in f32.
+3.35 TB/s), 58.9 MB at conv2 (17.6 us); twice that in f32. The kernel is a
+persistent grid that streams input rows into a shared-memory ring with
+bulk copies; its header note has the design.
 """
 
 from __future__ import annotations
@@ -56,27 +58,35 @@ def bias_relu_pool_lrn_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
 def bias_relu_pool_lrn(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """relu(x + bias) -> 3x3 stride-2 VALID maxpool -> LRN(2, 2e-5, 0.75, 1).
 
-    x [N,H,W,C] channels-last (bf16 or f32), bias [C] -> [N,Ho,Wo,C] in
-    x's dtype. x may be the NHWC permute of a channels_last NCHW tensor."""
+    x [N,H,W,C] channels-last (bf16 or f32), bias [C] (bf16 or f32, read
+    as stored) -> [N,Ho,Wo,C] in x's dtype. On the card x must be
+    contiguous, which the NHWC permute of a channels_last NCHW tensor is,
+    and 16-byte aligned: the kernel fills its ring with bulk copies."""
     if x.device.type == "cpu":
         return bias_relu_pool_lrn_plain(x, bias)
-    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+    floats = (torch.float32, torch.bfloat16)
+    if x.dim() != 4 or x.dtype not in floats:
         raise ValueError("bias_relu_pool_lrn: x must be [N,H,W,C] f32/bf16, "
                          f"got {tuple(x.shape)} {x.dtype}")
     n, h, w, c = x.shape
-    if bias.shape != (c,) or h < 3 or w < 3:
+    if bias.shape != (c,) or bias.dtype not in floats or h < 3 or w < 3:
         raise ValueError(f"bias_relu_pool_lrn: bias {tuple(bias.shape)} "
-                         f"for x {tuple(x.shape)}")
+                         f"{bias.dtype} for x {tuple(x.shape)}")
     _kernels.check_cuda(x, bias)
-    x = x.contiguous()
-    b32 = bias.to(torch.float32).contiguous()
+    if not (x.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("bias_relu_pool_lrn: x and bias must be contiguous, "
+                         f"got x strides {x.stride()}")
+    if x.data_ptr() % 16:
+        raise ValueError("bias_relu_pool_lrn: x must be 16-byte aligned, got "
+                         f"address {x.data_ptr():#x}")
     ho, wo = (h - 3) // 2 + 1, (w - 3) // 2 + 1
     out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
     if n:
         with torch.cuda.device(x.device):
             _kernels.launch("svt_bias_relu_pool_lrn", x.data_ptr(),
-                            b32.data_ptr(), out.data_ptr(), n, h, w, c,
+                            bias.data_ptr(), out.data_ptr(), n, h, w, c,
                             int(x.dtype == torch.bfloat16),
+                            int(bias.dtype == torch.bfloat16),
                             _kernels.stream_of(x))
         bias_relu_pool_lrn.launches += 1
     return out

@@ -54,3 +54,21 @@ def test_empty_and_partial_batches(params, specs):
     assert p5.shape == (5,)
     np.testing.assert_array_equal(p5, p40[:5])
     np.testing.assert_array_equal(s5, s40[:5])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pool_lrn_inputs_need_no_copy(params, specs, bf16, monkeypatch):
+    """K2's kernel copies nothing and refuses a non-contiguous x: both of
+    its inputs on the engine's path (conv1's and conv2's outputs, NHWC)
+    are contiguous already, with the bias in x's dtype."""
+    from svision_tpu_torch.models import alexnet as ta
+    seen, real = [], ta.bias_relu_pool_lrn
+
+    def recording(x, b):
+        seen.append((tuple(x.shape[1:]), x.is_contiguous(), x.dtype, b.dtype))
+        return real(x, b)
+    monkeypatch.setattr(ta, "bias_relu_pool_lrn", recording)
+    InferenceEngine(params, batch_size=4, bf16=bf16,
+                    device="cpu").predict_specs(specs[:4])
+    dt = torch.bfloat16 if bf16 else torch.float32
+    assert seen == [((55, 55, 96), True, dt, dt), ((27, 27, 256), True, dt, dt)]

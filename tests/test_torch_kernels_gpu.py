@@ -48,20 +48,45 @@ def test_raster_kernel_bit_exact(cuda, dtype):
     assert torch.equal(got, rasterize.render_raster(*seg, dtype=dtype))
 
 
+def _check_pool_lrn(dev, n, h, w, c, dtype, bias_dtype):
+    """One launch per call; bf16 bit-equal to the plain version (f32
+    inside, the same operation order, one rounding), f32 within 1e-5
+    relative."""
+    gen = torch.Generator(device=dev).manual_seed(n * 1000 + c)
+    x = (torch.randn((n, h, w, c), generator=gen, device=dev) * 2).to(dtype)
+    b = torch.randn((c,), generator=gen, device=dev).to(bias_dtype)
+    before = fused_pool_lrn.bias_relu_pool_lrn.launches
+    got = fused_pool_lrn.bias_relu_pool_lrn(x, b)
+    assert fused_pool_lrn.bias_relu_pool_lrn.launches == before + 1
+    want = fused_pool_lrn.bias_relu_pool_lrn_plain(x, b)
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        g, ref = got.float(), want.float()
+        assert ((g - ref).abs() <= 1e-5 * ref.abs() + 1e-6).all()
+
+
+@pytest.mark.parametrize("n", [1, 3, 128, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,c", [(55, 96), (27, 256)])
-def test_pool_lrn_kernel(cuda, dtype, h, c):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    x = (torch.randn((3, h, h, c), generator=gen, device=cuda) * 2).to(dtype)
-    b = torch.randn((c,), generator=gen, device=cuda).to(dtype)
-    got = fused_pool_lrn.bias_relu_pool_lrn(x, b).float()
-    want = fused_pool_lrn.bias_relu_pool_lrn_plain(x, b).float()
-    if dtype == torch.float32:      # f32 inside, same operation order
-        assert ((got - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
-    else:                           # one bf16 ulp
-        ulp = torch.pow(2.0, torch.floor(torch.log2(
-            want.abs().clamp_min(2.0 ** -126))) - 7)
-        assert ((got - want).abs() <= ulp).all()
+def test_pool_lrn_kernel(cuda, dtype, h, c, n):
+    """Both tails at batches whose runs end mid-image and wrap the ring;
+    the bias in x's dtype (bf16 on the fast path), passed as it is."""
+    _check_pool_lrn(cuda, n, h, h, c, dtype, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,c,bias_dtype", [
+    (55, 55, 64, torch.float32),      # runtime C, 8 channels a lane
+    (27, 27, 12, torch.bfloat16),     # 4 a lane; bf16 rows of 648 bytes
+    (55, 55, 12, torch.float32),
+    (13, 31, 3, torch.bfloat16),      # 1 a lane, not square
+])
+def test_pool_lrn_kernel_other_channels(cuda, dtype, h, w, c, bias_dtype):
+    """C outside {96, 256}: the runtime-C instances, with rows whose byte
+    length is not a multiple of 16 in bf16."""
+    _check_pool_lrn(cuda, 5, h, w, c, dtype, bias_dtype)
 
 
 def _batch(dev, n):
@@ -124,3 +149,14 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fused_conv1.conv1_fused_raster(ep, vis, rev,
                                        torch.zeros((3, 3, 48, 95), device=cuda))
+    # K2 copies nothing: a non-contiguous x and one off 16-byte alignment
+    # (a 1-element-offset view) are refused
+    b = torch.zeros((96,), dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros((2, 55, 55, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        fused_pool_lrn.bias_relu_pool_lrn(x.transpose(1, 2), b)
+    flat = torch.zeros((x.numel() + 1,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        fused_pool_lrn.bias_relu_pool_lrn(flat[1:].view(x.shape), b)
+    with pytest.raises(ValueError):
+        fused_pool_lrn.bias_relu_pool_lrn(x, b[:95])
