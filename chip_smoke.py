@@ -20,8 +20,18 @@ Phases, each of which fails the run with a non-zero exit on any check:
      synthetic genome + BAM with seeded random weights, in the default bf16
      mode and with --exact, counting kernel launches in each run, and hold
      the --exact VCF against the same run on the CPU;
-  5. print one {"kernels": [...]} line, the card's name and power limit,
-     and as the last line {"ok": true, "device": {...}}.
+  5. serve: a warm default-mode server (svision_tpu_torch.serve) in this
+     process answers three concurrent socket clients, two requests each, on
+     phase 4's sample and a two-chromosome one; every VCF must equal a
+     standalone CLI run's byte for byte, and every request's launches must
+     be launches per batch x batches; then `python -m
+     svision_tpu_torch.serve` answers one request over stdin;
+  6. shard the two-chromosome sample: 2 shards + --merge_shards in this
+     process, two --coordinator processes with disjoint out dirs, and a
+     two-sample cohort in 2 shard processes, each VCF byte-equal to its
+     1-shard run (and --mesh 2 where two GPUs are visible).
+Then it prints one {"kernels": [...]} line, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.
 `--report PATH` also writes the full report (every variant, the profile) as
 JSON to PATH.
 """
@@ -585,82 +595,128 @@ def _records(path: str):
     return [l for l in open(path) if not l.startswith("#") and l.strip()]
 
 
-def check_cli(params, work: str) -> dict:
-    from svision_tpu_torch import cli, sim
-    from svision_tpu_torch.infer.engine import InferenceEngine
-    from svision_tpu_torch.models.checkpoint import save_params
-    from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
+# launches per batch of each mode's device step, on each device of the
+# engine
+PER_BATCH = {
+    "default": {"render_raster": 0, "bias_relu_pool_lrn": 2,
+                "conv1_fused_raster": 1},
+    "exact": {"render_raster": 1, "bias_relu_pool_lrn": 2,
+              "conv1_fused_raster": 0},
+    "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
+            "conv1_fused_raster": 0}}
 
-    genome = os.path.join(work, "ref.fa")
-    seqs = sim.make_genome(genome, {"chr1": 150000}, seed=7)
-    bam = os.path.join(work, "sample.bam")
-    sim.make_sv_bam(bam, seqs, seed=7, support=8,
+
+def kernel_wrappers() -> dict:
+    from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
+    return {"render_raster": raster_kernel.render_raster,
+            "bias_relu_pool_lrn": fused_pool_lrn.bias_relu_pool_lrn,
+            "conv1_fused_raster": fused_conv1.conv1_fused_raster}
+
+
+@contextlib.contextmanager
+def counted():
+    """Count the block's kernel launches, every count set to 0 on entry,
+    and the batches the engine ran, those of a warm-up apart from the real
+    ones. Yields a dict that holds "batches" and gets "launches" and
+    "wall_s" (host clock) on exit."""
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    wrappers = kernel_wrappers()
+    out = {"batches": {"warmup": 0, "real": 0}}
+    warming = threading.local()
+    predict, warmup = InferenceEngine.predict_specs, InferenceEngine.warmup
+
+    def counting_predict(self, specs):
+        kind = "warmup" if getattr(warming, "on", False) else "real"
+        out["batches"][kind] += -(-len(specs) // self.batch_size)
+        return predict(self, specs)
+
+    def flagged_warmup(self):
+        warming.on = True
+        try:
+            warmup(self)
+        finally:
+            warming.on = False
+
+    InferenceEngine.predict_specs = counting_predict
+    InferenceEngine.warmup = flagged_warmup
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        yield out
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        InferenceEngine.predict_specs = predict
+        InferenceEngine.warmup = warmup
+
+
+def hold_launches(name: str, mode: str, run: dict, warmups: int,
+                  devices: int = 1) -> None:
+    """A run's launches equal launches per batch x batches x devices, with
+    `warmups` warm-up batches among the batches."""
+    b = run["batches"]
+    assert b["warmup"] == warmups and b["real"] >= 1, f"{name}: batches {b}"
+    want = {k: v * (b["warmup"] + b["real"]) * devices
+            for k, v in PER_BATCH[mode].items()}
+    assert run["launches"] == want, \
+        f"{name}: launches {run['launches']} != {want}"
+
+
+def mesh_devices(spec: str = "auto", device: str = "cuda") -> int:
+    """The number of devices a --mesh flag gives the engine."""
+    from svision_tpu_torch.parallel.mesh import resolve_mesh
+    return len(resolve_mesh(spec, device) or (device,))
+
+
+def make_fixtures(params, work: str) -> dict:
+    """Seeded weights and two synthetic samples: phase 4's (chr1 150 kb,
+    DEL/INS/INV) and a two-chromosome one (chr1 150 kb and chr2 100 kb, one
+    event on each) on a genome whose chr1 is phase 4's chr1."""
+    from svision_tpu_torch import sim
+    from svision_tpu_torch.models.checkpoint import save_params
+    fx = {k: os.path.join(work, f) for k, f in (
+        ("genome", "ref.fa"), ("bam", "sample.bam"), ("weights", "w.npz"),
+        ("genome2", "ref2.fa"), ("bam2", "two.bam"))}
+    seqs = sim.make_genome(fx["genome"], {"chr1": 150000}, seed=7)
+    sim.make_sv_bam(fx["bam"], seqs, seed=7, support=8,
                     events=[("DEL", "chr1", 20000, 300),
                             ("INS", "chr1", 60000, 220),
                             ("INV", "chr1", 100000, 400)])
-    weights = os.path.join(work, "w.npz")
-    save_params(params, weights)
-    wrappers = {"render_raster": raster_kernel.render_raster,
-                "bias_relu_pool_lrn": fused_pool_lrn.bias_relu_pool_lrn,
-                "conv1_fused_raster": fused_conv1.conv1_fused_raster}
+    seqs2 = sim.make_genome(fx["genome2"], {"chr1": 150000, "chr2": 100000},
+                            seed=7)
+    assert seqs2["chr1"] == seqs["chr1"]
+    sim.make_sv_bam(fx["bam2"], seqs2, seed=11, support=8,
+                    events=[("DEL", "chr1", 40000, 300),
+                            ("INS", "chr2", 50000, 220)])
+    save_params(params, fx["weights"])
+    return fx
 
-    # launches per batch of each mode's device step
-    per_batch = {
-        "default": {"render_raster": 0, "bias_relu_pool_lrn": 2,
-                    "conv1_fused_raster": 1},
-        "exact": {"render_raster": 1, "bias_relu_pool_lrn": 2,
-                  "conv1_fused_raster": 0},
-        "exact_cpu": dict.fromkeys(wrappers, 0)}
+
+def check_cli(fx: dict, work: str) -> dict:
+    from svision_tpu_torch import cli
 
     def run(name, mode, extra):
-        """One run_pipeline call; the batches the engine ran are recorded
-        by call (warm-up or real), so the launch counts can be held to
-        launches per batch x batches, with the warm-up apart."""
-        args = ["-o", os.path.join(work, name), "-b", bam, "-g", genome,
-                "-m", weights, "-n", "synthsample", "-s", "3", *extra]
-        batches = {"warmup": 0, "real": 0}
-        warming = threading.local()
-        predict, warmup = InferenceEngine.predict_specs, InferenceEngine.warmup
-
-        def counting_predict(self, specs):
-            kind = "warmup" if getattr(warming, "on", False) else "real"
-            batches[kind] += -(-len(specs) // self.batch_size)
-            return predict(self, specs)
-
-        def flagged_warmup(self):
-            warming.on = True
-            try:
-                warmup(self)
-            finally:
-                warming.on = False
-
-        InferenceEngine.predict_specs = counting_predict
-        InferenceEngine.warmup = flagged_warmup
-        try:
-            for w in wrappers.values():
-                w.launches = 0
-            t0 = time.perf_counter()
+        """One run_pipeline call, its launch counts held to launches per
+        batch x batches, with the one warm-up batch counted apart."""
+        args = ["-o", os.path.join(work, name), "-b", fx["bam"],
+                "-g", fx["genome"], "-m", fx["weights"], "-n", "synthsample",
+                "-s", "3", *extra]
+        with counted() as r:
             vcf = cli.run_pipeline(cli.parse_arguments(args))
-            wall = time.perf_counter() - t0
-            launches = {k: w.launches for k, w in wrappers.items()}
-        finally:
-            InferenceEngine.predict_specs = predict
-            InferenceEngine.warmup = warmup
         recs = _records(vcf)
         assert recs, f"{name}: VCF has no records"
-        assert batches["warmup"] == 1 and batches["real"] >= 1, batches
-        want = {k: v * (batches["warmup"] + batches["real"])
-                for k, v in per_batch[mode].items()}
-        assert launches == want, f"{name}: launches {launches} != {want}"
-        log(f"cli {name}: {len(recs)} records, {wall:.3f} s, batches "
-            f"{batches}, launches {launches}")
-        return vcf, dict(wall_s=wall, records=len(recs), batches=batches,
-                         launches=launches)
+        cpu = "cpu" in extra
+        hold_launches(name, "cpu" if cpu else mode, r, warmups=1,
+                      devices=1 if cpu else mesh_devices())
+        log(f"cli {name}: {len(recs)} records, {r['wall_s']:.3f} s, batches "
+            f"{r['batches']}, launches {r['launches']}")
+        return vcf, dict(r, records=len(recs))
 
     out = {}
     _, out["default"] = run("gpu_default", "default", [])
     gpu_vcf, out["exact"] = run("gpu_exact", "exact", ["--exact"])
-    cpu_vcf, out["exact_cpu"] = run("cpu_exact", "exact_cpu",
+    cpu_vcf, out["exact_cpu"] = run("cpu_exact", "exact",
                                     ["--exact", "--device", "cpu"])
 
     head_g = [l for l in open(gpu_vcf) if l.startswith("#")]
@@ -682,8 +738,309 @@ def check_cli(params, work: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 5 and 6: serving, sharding, cohorts
+# ---------------------------------------------------------------------------
 
-def kernel_line(kernels: dict, cli_out: dict, build: dict) -> dict:
+def same_bytes(got: str, want: str, what: str) -> None:
+    with open(got, "rb") as g, open(want, "rb") as w:
+        a, b = g.read(), w.read()
+    assert a == b, f"{what}: {got} differs from {want}"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(argvs, logs, timeout: float = 300.0) -> float:
+    """Start every argv at once from the checkout's root and wait for all;
+    fail with the end of the log of any that exits non-zero. Returns the
+    wall time in s. Every process is gone on return."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    files = [open(p, "w") for p in logs]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(a, stdout=f, stderr=subprocess.STDOUT,
+                              cwd=ROOT, env=env) for a, f in zip(argvs, files)]
+    try:
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    for p, path in zip(procs, logs):
+        with open(path) as f:
+            tail = f.read()[-3000:]
+        assert p.returncode == 0, f"{p.args} exited {p.returncode}:\n{tail}"
+    return wall
+
+
+@contextlib.contextmanager
+def working_dir(path: str):
+    """chdir for the block: a Unix socket's path is limited to 107 bytes,
+    so the server binds a name relative to its directory."""
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def check_serve(fx: dict, work: str, cold_wall_s: float) -> dict:
+    """Phase 5: one warm default-mode server in this process on the
+    two-chromosome genome, three concurrent socket clients with two
+    requests each (phase 4's sample and the two-chromosome one), every
+    reply's VCF byte-equal to a standalone CLI run and every request's
+    launches held; then `python -m svision_tpu_torch.serve` once over
+    stdin."""
+    import socket
+    from svision_tpu_torch import cli, serve
+
+    samples = {"A": fx["bam"], "B": fx["bam2"]}
+    base = ["-g", fx["genome2"], "-m", fx["weights"], "-s", "3"]
+    nd = mesh_devices()
+    out = {"runs": {}}
+    solo = {}
+    for s, bam in samples.items():
+        with counted() as r:
+            solo[s] = cli.run_pipeline(cli.parse_arguments(
+                ["-o", os.path.join(work, f"solo_{s}"), "-b", bam,
+                 "-n", f"S{s}", *base]))
+        hold_launches(f"cli {s}", "default", r, warmups=1, devices=nd)
+        assert _records(solo[s]), f"standalone {s}: VCF has no records"
+        out["runs"][f"cli_{s}"] = r
+        log(f"cli on the two-chromosome genome, sample {s}: "
+            f"{len(_records(solo[s]))} records, {r['wall_s']:.3f} s, "
+            f"launches {r['launches']}")
+    out["solo"] = solo
+
+    requests = []
+    handle = serve.handle_request
+
+    def counted_handle(req, ns, engine):
+        with counted() as r:
+            rep = handle(req, ns, engine)
+        requests.append(dict(r, id=req.get("id")))
+        return rep
+
+    with working_dir(work):
+        ns = serve.parse_arguments([*base, "--socket", "svs.sock"])
+        t0 = time.perf_counter()
+        engine = serve.build_engine(ns)
+        out["ready_s"] = time.perf_counter() - t0
+        serve.handle_request = counted_handle
+
+        def run_server():
+            # its banner goes to stderr: stdout carries this script's lines
+            with contextlib.redirect_stdout(sys.stderr):
+                serve.serve_socket(ns, engine, "svs.sock")
+
+        server = threading.Thread(target=run_server, daemon=True)
+        try:
+            server.start()
+
+            def connect():
+                for _ in range(600):
+                    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                    try:
+                        conn.connect("svs.sock")
+                        return conn
+                    except OSError:
+                        conn.close()
+                        time.sleep(0.05)
+                raise AssertionError("the socket server never listened")
+
+            replies = {t: [] for t in range(3)}
+
+            def client(t):
+                conn = connect()
+                with conn, conn.makefile("r", encoding="utf-8") as f:
+                    for i, s in enumerate("AB" if t % 2 == 0 else "BA"):
+                        req = {"bam": samples[s], "sample": f"S{s}",
+                               "out": os.path.join(work, f"srv{t}_{i}"),
+                               "id": f"{t}:{i}:{s}"}
+                        conn.sendall((json.dumps(req) + "\n").encode())
+                    replies[t].extend(json.loads(f.readline())
+                                      for _ in range(2))
+
+            clients = [threading.Thread(target=client, args=(t,))
+                       for t in range(3)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=300)
+                assert not c.is_alive(), "a socket client hung"
+            conn = connect()
+            with conn, conn.makefile("r", encoding="utf-8") as f:
+                conn.sendall(b'{"cmd": "shutdown"}\n')
+                assert json.loads(f.readline()) == {"ok": True, "bye": True}
+            server.join(timeout=60)
+            assert not server.is_alive(), "the socket server did not stop"
+        finally:
+            serve.handle_request = handle
+    del engine
+
+    for t, reps in replies.items():
+        assert [r.get("id")[:3] for r in reps] == [f"{t}:0", f"{t}:1"], reps
+        for r in reps:
+            assert r["ok"], r
+            same_bytes(r["vcf"], solo[r["id"][-1]], f"served {r['id']}")
+    assert len(requests) == 6, requests
+    for r in requests:
+        hold_launches(f"request {r['id']}", "default", r, warmups=0,
+                      devices=nd)
+    out["requests"] = requests
+    out["runs"]["serve"] = dict(
+        launches={k: sum(r["launches"][k] for r in requests)
+                  for k in PER_BATCH["default"]},
+        batches={k: sum(r["batches"][k] for r in requests)
+                 for k in ("warmup", "real")})
+    walls = ", ".join(f"{r['id']} {r['wall_s']:.3f} s" for r in requests)
+    log(f"serve: ready in {out['ready_s']:.3f} s; warm requests {walls}; "
+        f"phase 4's cold CLI run {cold_wall_s:.3f} s")
+
+    # the module's own entry point over stdin
+    errlog = os.path.join(work, "serve_stdin.log")
+    with open(errlog, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "svision_tpu_torch.serve", *base],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+            text=True, cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2"))
+        watchdog = threading.Timer(300, proc.kill)
+        watchdog.start()
+        try:
+            t0 = time.perf_counter()
+            line = proc.stdout.readline()
+            out["subprocess_ready_s"] = time.perf_counter() - t0
+
+            def ask(req):
+                proc.stdin.write(json.dumps(req) + "\n")
+                proc.stdin.flush()
+                return json.loads(proc.stdout.readline())
+
+            assert line, f"no banner:\n{open(errlog).read()[-3000:]}"
+            banner = json.loads(line)
+            assert banner == {"ready": True, "pid": proc.pid}, banner
+            t0 = time.perf_counter()
+            rep = ask({"bam": samples["B"], "sample": "SB", "id": "stdin",
+                       "out": os.path.join(work, "srv_stdin")})
+            out["subprocess_request_s"] = time.perf_counter() - t0
+            assert rep["ok"] and rep["id"] == "stdin", rep
+            same_bytes(rep["vcf"], solo["B"], "served over stdin")
+            assert ask({"cmd": "ping"}) == {"ok": True, "pong": True}
+            assert ask({"cmd": "shutdown"}) == {"ok": True, "bye": True}
+            assert proc.wait(timeout=60) == 0, "serve exited non-zero"
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    log(f"serve over stdin (subprocess): ready in "
+        f"{out['subprocess_ready_s']:.3f} s, one request "
+        f"{out['subprocess_request_s']:.3f} s, VCF equal, exit 0")
+    return out
+
+
+def check_shards(fx: dict, work: str, solo: dict) -> dict:
+    """Phase 6, on the two-chromosome sample: two shards and a merge in
+    this process, two --coordinator processes with disjoint out dirs, and a
+    two-sample cohort in 2 shards as two processes, each VCF byte-equal to
+    its 1-shard run; --mesh 2 where the machine has two GPUs."""
+    import torch
+    from svision_tpu_torch import cli
+    from svision_tpu_torch.parallel import cohort
+
+    base = ["-b", fx["bam2"], "-g", fx["genome2"], "-m", fx["weights"],
+            "-n", "SB", "-s", "3"]
+    nd = mesh_devices()
+    out = {"runs": {}}
+    shard_dir = os.path.join(work, "shards")
+    t_all = time.perf_counter()
+    for k in (0, 1):
+        with counted() as r:
+            frag = cli.run_pipeline(cli.parse_arguments(
+                ["-o", shard_dir, *base, "--num_shards", "2",
+                 "--shard_id", str(k)]))
+        assert frag == os.path.join(shard_dir, "predict_results"), frag
+        hold_launches(f"shard {k}", "default", r, warmups=1, devices=nd)
+        out["runs"][f"shard{k}"] = r
+    with counted() as r:
+        merged = cli.run_pipeline(cli.parse_arguments(
+            ["-o", shard_dir, *base, "--merge_shards"]))
+    assert r["batches"] == {"warmup": 0, "real": 0} and \
+        not any(r["launches"].values()), f"merge ran the engine: {r}"
+    out["two_shards_in_process_s"] = time.perf_counter() - t_all
+    same_bytes(merged, solo["B"], "2 shards + merge")
+    log(f"shards: 2 shards + merge in this process "
+        f"{out['two_shards_in_process_s']:.3f} s (1-shard run "
+        f"{REPORT['serve']['runs']['cli_B']['wall_s']:.3f} s), VCF equal; "
+        f"launches {out['runs']['shard0']['launches']} / "
+        f"{out['runs']['shard1']['launches']}")
+
+    coord = f"127.0.0.1:{free_port()}"
+    dirs = [os.path.join(work, f"coord{k}") for k in (0, 1)]
+    out["coordinator_s"] = run_procs(
+        [[sys.executable, "-m", "svision_tpu_torch.cli", "-o", dirs[k], *base,
+          "--num_shards", "2", "--shard_id", str(k), "--coordinator", coord]
+         for k in (0, 1)],
+        [os.path.join(work, f"coord{k}.log") for k in (0, 1)])
+    same_bytes(os.path.join(dirs[0], "SB.svision.s3.vcf"), solo["B"],
+               "--coordinator")
+    assert not os.path.exists(os.path.join(dirs[1], "SB.svision.s3.vcf"))
+    log(f"shards: two --coordinator processes sharing the GPUs "
+        f"{out['coordinator_s']:.3f} s, VCF equal")
+
+    samples = {"A": fx["bam"], "B": fx["bam2"]}
+    one = os.path.join(work, "cohort1")
+    os.makedirs(one)
+    with counted() as r:
+        cohort1 = cohort.run_cohort(samples, cli.RunOptions(
+            out_path=one, genome=fx["genome2"], model_path=fx["weights"],
+            min_support=3).normalized())
+    hold_launches("cohort 1 shard", "default", r, warmups=1, devices=nd)
+    out["runs"]["cohort_1shard"] = r
+    assert _records(cohort1), "cohort VCF has no records"
+    two = os.path.join(work, "cohort2")
+    out["cohort_2_processes_s"] = run_procs(
+        [[sys.executable, "-m", "svision_tpu_torch.parallel.cohort",
+          "-o", two, "-g", fx["genome2"], "-m", fx["weights"], "--samples",
+          *[f"{n}={p}" for n, p in samples.items()], "-s", "3",
+          "--num-shards", "2", "--shard-id", str(k)] for k in (0, 1)],
+        [os.path.join(work, f"cohort2_{k}.log") for k in (0, 1)])
+    same_bytes(os.path.join(two, "cohort.svision.s3.vcf"), cohort1,
+               "2-shard cohort")
+    log(f"cohort: 1 shard {r['wall_s']:.3f} s, 2 shard processes "
+        f"{out['cohort_2_processes_s']:.3f} s, VCF equal "
+        f"({len(_records(cohort1))} sites)")
+
+    if torch.cuda.device_count() > 1:
+        with counted() as r:
+            vcf = cli.run_pipeline(cli.parse_arguments(
+                ["-o", os.path.join(work, "mesh2"), *base, "--mesh", "2"]))
+        hold_launches("--mesh 2", "default", r, warmups=1, devices=2)
+        same_bytes(vcf, solo["B"], "--mesh 2")
+        out["runs"]["mesh2"] = r
+        log(f"--mesh 2: VCF equal, launches {r['launches']}")
+    else:
+        log("--mesh 2: one GPU visible, so the multi-GPU engine was not run "
+            "on the card")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
+    """The kernels line: each kernel's launches in every main-path run of
+    phases 4-6 (runs: name -> {"launches", "batches"}), its error against
+    its plain version, and its times and bound at the main path's dtype."""
     info = {
         "render_raster": ("svision_tpu_torch/csrc/raster.cu",
                           "svision_tpu/ops/pallas_raster.py:108", "f32", None),
@@ -698,13 +1055,11 @@ def kernel_line(kernels: dict, cli_out: dict, build: dict) -> dict:
     for name, (src, replaces, dtype, tail) in info.items():
         main = next(v for v in kernels[name] if v["dtype"] == dtype
                     and v.get("tail", tail) == tail)
-        launches = {run: cli_out[run]["launches"][name]
-                    for run in ("default", "exact")}
+        launches = {run: r["launches"][name] for run, r in runs.items()}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=sum(launches.values()), launches_by_run=launches,
-            batches_by_run={run: cli_out[run]["batches"]
-                            for run in ("default", "exact")},
+            batches_by_run={run: r["batches"] for run, r in runs.items()},
             max_abs_err=max(v["max_abs_err"] for v in kernels[name]),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -778,11 +1133,25 @@ def main(argv=None) -> int:
     log("phase 3: engine agrees with the all-plain engine")
     REPORT["profile"] = profile_engine(params)
     with tempfile.TemporaryDirectory() as work:
-        REPORT["cli"] = check_cli(params, work)
-    log("phase 4: CLI path ok")
+        fx = make_fixtures(params, work)
+        t0 = time.perf_counter()
+        REPORT["cli"] = check_cli(fx, work)
+        log(f"phase 4: CLI path ok ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        REPORT["serve"] = check_serve(fx, work,
+                                      REPORT["cli"]["default"]["wall_s"])
+        log(f"phase 5: serving ok ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        REPORT["shards"] = check_shards(fx, work, REPORT["serve"]["solo"])
+        log(f"phase 6: sharding and cohorts ok "
+            f"({time.perf_counter() - t0:.1f} s)")
     REPORT["total_s"] = time.perf_counter() - t_all
+    log(f"chip_smoke: {REPORT['total_s']:.1f} s in all")
 
-    line = kernel_line(REPORT["kernels"], REPORT["cli"], build)
+    runs = {f"cli_{k}": REPORT["cli"][k] for k in ("default", "exact")}
+    runs.update(REPORT["serve"]["runs"])
+    runs.update(REPORT["shards"]["runs"])
+    line = kernel_line(REPORT["kernels"], runs, build)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

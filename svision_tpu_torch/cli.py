@@ -3,11 +3,13 @@
 Counterpart of the JAX package's cli.py: the same flags and the same
 pipeline, with the PyTorch engine (infer/engine.py) in place of the JAX one.
 Port-specific: --device {cuda,cpu} (cuda by default; a run never falls back
-to the CPU unless asked), --profile writes a torch.profiler trace,
---jax-cache is accepted and ignored, and multi-device / multi-host runs
-(--num_shards > 1, --merge_shards, --coordinator, a --mesh of more than one
-device) are not yet ported and raise. torch stays out of this module's top
-level so that the spawn workers of -t N stay light.
+to the CPU unless asked), --profile writes a torch.profiler trace, and
+--jax-cache is accepted and ignored. A --mesh of N devices runs the engine
+data-parallel over N GPUs (N CPU replicas with --device cpu);
+--num_shards/--shard_id/--merge_shards and --coordinator run the genome
+sharded across processes (parallel/dist.py, over torch.distributed's gloo
+backend). torch stays out of this module's top level so that the spawn
+workers of -t N stay light.
 
 Flag surface and pipeline staging mirror the reference CLI (SVision:27-395):
 window task list -> collection -> prediction -> QUAL-rescaled merged VCF ->
@@ -145,9 +147,10 @@ def parse_arguments(arguments=None) -> Options:
                      help="Run the CNN in f32 (reference-faithful numerics) "
                      "instead of the default bf16 fast path")
     pre.add_argument("--mesh", type=str, default="auto",
-                     help="Inference devices: 'auto' or 'none' (one device) "
-                     "or a device count; more than one is not yet ported "
-                     "(default: %(default)s)")
+                     help="Data-parallel inference devices: 'auto' (every "
+                     "visible GPU), 'none' (one device) or a device count "
+                     "(CPU replicas with --device cpu) (default: "
+                     "%(default)s)")
 
     gt = parser.add_argument_group("Genotype parameters")
     gt.add_argument("--min_gt_depth", type=int, default=4)
@@ -167,8 +170,7 @@ def parse_arguments(arguments=None) -> Options:
     hsh.add_argument("--max_hash_len", type=int, default=1000)
 
     dst = parser.add_argument_group(
-        "Distribution parameters (multi-host genome-axis sharding of "
-        "svision-tpu; not yet ported, only the 1-shard defaults run)")
+        "Distribution parameters (multi-host genome-axis sharding)")
     dst.add_argument("--num_shards", type=int, default=1,
                      help="Total shard count; this process runs only its "
                      "round-robin share of chromosomes")
@@ -184,25 +186,6 @@ def parse_arguments(arguments=None) -> Options:
 
     ns = parser.parse_args(arguments)
     return RunOptions(**vars(ns)).normalized()
-
-
-def _check_ported(options: Options) -> None:
-    """Raise for the multi-device and multi-host modes of svision-tpu that
-    this port does not have yet."""
-    mesh = str(options.mesh).lower()
-    if mesh not in ("auto", "none", "0", "1"):
-        try:
-            more = int(mesh) > 1
-        except ValueError:
-            raise ValueError(f"--mesh {options.mesh!r}: expected 'auto', "
-                             "'none' or a device count") from None
-        if more:
-            raise NotImplementedError("--mesh with more than one device is "
-                                      "not yet ported to svision_tpu_torch")
-    if options.num_shards > 1 or options.merge_shards or options.coordinator:
-        raise NotImplementedError(
-            "--num_shards > 1, --merge_shards and --coordinator are not yet "
-            "ported to svision_tpu_torch")
 
 
 def build_task_list(bam: BamReader, ref: FastaFile, options: Options
@@ -330,12 +313,18 @@ def finalize_vcf(merged_vcf_path: str, work_dir: str, options: Options) -> str:
 def run_pipeline(options: Options, engine=None) -> str:
     """Full pipeline; returns the path of the final VCF. `engine` is an
     optional caller-owned, already warm InferenceEngine; by default one is
-    built from -m on options.device."""
+    built from -m on options.device and the --mesh devices.
+
+    Multi-host mode (--num_shards N --shard_id K): runs only this shard's
+    chromosomes and returns the predict_results dir; a final --merge_shards
+    invocation (shared filesystem) produces the VCF, or with --coordinator
+    process 0 gathers the fragments and merges. Shard assignment is
+    deterministic, so the N-shard merge is byte-identical to a 1-shard run
+    (tests/test_torch_dist.py)."""
     from svision_tpu_torch.models.checkpoint import load_params
     from svision_tpu_torch.infer.aggregate import predict_chromosome
     from svision_tpu_torch.call.vcfout import cal_scores_max_min, merge_split_vcfs
 
-    _check_ported(options)
     work_dir = options.out_path
     os.makedirs(work_dir, exist_ok=True)
 
@@ -349,6 +338,27 @@ def run_pipeline(options: Options, engine=None) -> str:
     logging.info("**** Start svision-tpu, version %s (SVision v%s parity) ****",
                  __version__, REFERENCE_VERSION)
     logging.info("CMD: %s", " ".join(sys.argv))
+
+    if options.merge_shards or options.num_shards > 1:
+        from svision_tpu_torch.parallel import dist
+        if options.coordinator and not options.merge_shards:
+            merged = dist.run_distributed(options)
+            if merged is None:      # non-zero process: fragments shipped
+                logging.info("shard %d/%d done; fragments gathered to "
+                             "process 0", options.shard_id, options.num_shards)
+                return os.path.join(work_dir, "predict_results")
+            return finalize_vcf(merged, work_dir, options)
+        bam = BamReader(options.bam_path)
+        ref = FastaFile(options.genome)
+        chrom_order = list(build_task_list(bam, ref, options))
+        if options.merge_shards:
+            merged = dist.merge_all(options, chrom_order)
+            return finalize_vcf(merged, work_dir, options)
+        handled = dist.run_shard(options, options.shard_id,
+                                 options.num_shards)
+        logging.info("shard %d/%d finished chromosomes: %s",
+                     options.shard_id, options.num_shards, handled)
+        return os.path.join(work_dir, "predict_results")
 
     bam = BamReader(options.bam_path)
     ref = FastaFile(options.genome)
@@ -448,15 +458,21 @@ def run_pipeline(options: Options, engine=None) -> str:
     logging.info("**** Step2 CNN prediction (pipelined with collection) ****")
     if engine is None:
         from svision_tpu_torch.infer.engine import InferenceEngine
+        from svision_tpu_torch.parallel.mesh import resolve_mesh
         params = load_params(options.model_path)
+        mesh = resolve_mesh(options.mesh, options.device)
+        if mesh is not None:
+            logging.info("inference mesh: %d devices (data-parallel)",
+                         len(mesh))
         engine = InferenceEngine(params, batch_size=options.batch_size,
-                                 bf16=options.bf16,
-                                 device=options.device)
+                                 bf16=options.bf16, device=options.device,
+                                 devices=mesh)
         # Build the kernels and set up cuDNN on a background thread while
         # window collection proceeds.
         warmup_thread = engine.warmup_async()
     else:
-        # a caller-owned engine is already warm
+        # serving mode (svision_tpu_torch.serve): a caller-owned engine is
+        # already warm — model load and kernel build amortize across requests
         warmup_thread = None
     profile_ctx = contextlib.nullcontext()
     if options.profile_dir:

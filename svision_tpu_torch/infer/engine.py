@@ -68,28 +68,38 @@ class InferenceEngine:
     """Batched raster + CNN forward with a fixed batch shape.
 
     predict_specs(specs[N,12]) -> (int64[N] argmax, f32[N] max softmax).
-    Every batch of a call is queued on the device's current stream from
-    pinned host memory, and the call synchronizes once, when the results
-    come back."""
+    Every batch of a call is queued on each device's current stream from
+    pinned host memory, and the call synchronizes once per device, when the
+    results come back.
+
+    devices=(d0, d1, ...) makes the engine data-parallel, as a mesh does the
+    JAX package's: one model replica per device, each batch's rows split
+    evenly across the devices (the batch size rounds up to a multiple of
+    their count), and the rows come back in order. Without it the engine
+    runs on `device`."""
 
     _SENTINEL = np.array([[0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2]],
                          dtype=np.int64)   # create_batch.py:55
 
     def __init__(self, params, batch_size: int = 128, bf16: bool = True,
-                 device=None):
-        self.device = resolve_device(device)
-        self.batch_size = batch_size
+                 device=None, devices=None):
+        self.devices = tuple(resolve_device(d)
+                             for d in (devices if devices else (device,)))
+        self.device = self.devices[0]
+        nd = len(self.devices)
+        self.batch_size = -(-batch_size // nd) * nd   # equal shards
         self.bf16 = bf16
         host = {k: np.asarray(v) for k, v in params.items()}
         if bf16:
-            # fold + pre-cast on the host: half the transfer, bit-equal
+            # fold + pre-cast once on the host: half the transfer, bit-equal
             # weights (fold_params_bf16)
-            self.model = AlexNet.from_params(fold_params_bf16(host), s2d=True,
-                                             device=self.device)
-            self.w_s2d = self.model.conv1_weight_hwio()
-        else:
-            self.model = AlexNet.from_params(host, device=self.device)
-            self.w_s2d = None
+            host = fold_params_bf16(host)
+        # one replica per device: (model, conv1 weights for the fused kernel)
+        self._replicas = []
+        for dev in self.devices:
+            model = AlexNet.from_params(host, s2d=bf16, device=dev)
+            self._replicas.append(
+                (model, model.conv1_weight_hwio() if bf16 else None))
         self._lock = threading.Lock()   # one predict at a time (warmup_async)
 
     def _pad(self, specs: np.ndarray, multiple: int) -> np.ndarray:
@@ -112,14 +122,15 @@ class InferenceEngine:
         t.start()
         return t
 
-    def _step(self, ep, vis, rev) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One batch on the device -> (argmax, max softmax)."""
+    def _step(self, model, w_s2d, ep, vis, rev
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One batch (or one device's share of it) on the device ->
+        (argmax, max softmax)."""
         if self.bf16:
-            pre = conv1_fused_raster(ep, vis, rev, self.w_s2d)
-            logits = self.model.forward_conv1(pre)
+            pre = conv1_fused_raster(ep, vis, rev, w_s2d)
+            logits = model.forward_conv1(pre)
         else:
-            logits = self.model(render_images(ep, vis, rev,
-                                              dtype=torch.float32))
+            logits = model(render_images(ep, vis, rev, dtype=torch.float32))
         # soft[argmax] == max(soft): softmax is monotone
         return logits.argmax(dim=1), torch.softmax(logits, dim=1).amax(dim=1)
 
@@ -129,24 +140,32 @@ class InferenceEngine:
         n = specs.shape[0]
         if n == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
-        bs = self.batch_size
+        bs, nd = self.batch_size, len(self.devices)
+        sub = bs // nd                       # each device's rows of a batch
         specs = self._pad(np.asarray(specs), bs)
         ep, vis, rev = rasterize.specs_to_endpoints(specs)
-        cuda = self.device.type == "cuda"
         host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ep, vis, rev)]
-        if cuda:
+        if self.device.type == "cuda":
             host = [t.pin_memory() for t in host]
         total = specs.shape[0]
         with self._lock, (exact_f32() if not self.bf16
                           else contextlib.nullcontext()):
-            preds = torch.empty(total, dtype=torch.int64, device=self.device)
-            softs = torch.empty(total, dtype=torch.float32, device=self.device)
+            # device d holds rows [i + d*sub, i + (d+1)*sub) of each batch i
+            outs = [(torch.empty(total // nd, dtype=torch.int64, device=dev),
+                     torch.empty(total // nd, dtype=torch.float32, device=dev))
+                    for dev in self.devices]
             for i in range(0, total, bs):
-                batch = [t[i:i + bs].to(self.device, non_blocking=True)
-                         for t in host]
-                p, s = self._step(*batch)
-                preds[i:i + bs] = p
-                softs[i:i + bs] = s.float()
-            # the one synchronization of the call
-            preds, softs = preds.cpu(), softs.cpu()
+                for d, dev in enumerate(self.devices):
+                    lo = i + d * sub
+                    batch = [t[lo:lo + sub].to(dev, non_blocking=True)
+                             for t in host]
+                    p, s = self._step(*self._replicas[d], *batch)
+                    preds, softs = outs[d]
+                    preds[i // nd:i // nd + sub] = p
+                    softs[i // nd:i // nd + sub] = s.float()
+            # the call's one synchronization per device
+            outs = [(p.cpu(), s.cpu()) for p, s in outs]
+        # [device, batch, row] -> [batch, device, row]: the specs' order
+        preds, softs = (torch.stack(o).reshape(nd, -1, sub).transpose(0, 1)
+                        .reshape(-1) for o in zip(*outs))
         return preds.numpy()[:n], softs.numpy()[:n]

@@ -24,7 +24,9 @@ def test_imports_with_jax_absent():
             "svision_tpu_torch.infer.engine, svision_tpu_torch.models.alexnet, "
             "svision_tpu_torch.ops.raster_kernel, "
             "svision_tpu_torch.ops.fused_pool_lrn, "
-            "svision_tpu_torch.ops.fused_conv1; "
+            "svision_tpu_torch.ops.fused_conv1, svision_tpu_torch.serve, "
+            "svision_tpu_torch.parallel.mesh, svision_tpu_torch.parallel.dist, "
+            "svision_tpu_torch.parallel.cohort; "
             "assert not any(m == 'svision_tpu' or m.startswith('svision_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,

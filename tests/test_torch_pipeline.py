@@ -84,14 +84,6 @@ def test_exact_cpu_vcf_matches_jax(workspace, tmp_path, threads):
     assert_vcf_match(vcf, workspace["jax_vcf"])
 
 
-def test_unported_modes_raise(workspace, tmp_path):
-    for extra in (["--num_shards", "2"], ["--merge_shards"], ["--mesh", "4"]):
-        opts = port_cli.parse_arguments(_args(
-            workspace, str(tmp_path / "x"), ["--device", "cpu", *extra]))
-        with pytest.raises(NotImplementedError):
-            port_cli.run_pipeline(opts)
-
-
 def test_sim_writes_the_same_bytes(tmp_path):
     out = {}
     for name, mod in (("jax", jax_sim), ("port", port_sim)):
