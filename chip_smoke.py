@@ -29,7 +29,14 @@ Phases, each of which fails the run with a non-zero exit on any check:
   6. shard the two-chromosome sample: 2 shards + --merge_shards in this
      process, two --coordinator processes with disjoint out dirs, and a
      two-sample cohort in 2 shard processes, each VCF byte-equal to its
-     1-shard run (and --mesh 2 where two GPUs are visible).
+     1-shard run (and --mesh 2 where two GPUs are visible);
+  7. train (svision_tpu_torch.models.train): one f32 step on the card
+     against the same step on the CPU; eight bf16 steps with a falling
+     loss; training images/s of fit and fit_device; a profiled bf16 s2d
+     step; the DP x TP step where two GPUs are visible; and a mini closed
+     loop (build_dataset, fit_device, evaluate) whose weights go through
+     phase 4's CLI. Every training run's launches are held to launches
+     per step x steps.
 Then it prints one {"kernels": [...]} line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 `--report PATH` also writes the full report (every variant, the profile) as
@@ -159,6 +166,23 @@ def spread_ms(fns, reps: int = 50) -> dict:
     t = [a.elapsed_time(b) for a, b in ev]
     return dict(min=min(t), median=statistics.median(t), max=max(t),
                 host_us_per_launch=info["host_ms"] / reps * 1e3)
+
+
+def host_clock_ms(fn, reps: int = 10) -> float:
+    """Mean host-clock ms per call over reps calls run back to back,
+    synchronized at both ends, after two warm-up calls: for work bound by
+    its host dispatch, such as a training step (several hundred launches),
+    which a held queue cannot time: its launches fill the queue behind the
+    sleep, and the host blocks."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def best_rate(eng, specs, calls: int = 3) -> float:
@@ -523,6 +547,40 @@ def check_engine(params) -> dict:
     return out
 
 
+def device_time(prof, wall_ms: float, what: str):
+    """({kernel: device ms}, device busy ms) of a torch.profiler run: busy
+    is the union of the traced kernels' and copies' intervals (copies
+    overlap kernels, so the sum of their times may exceed the wall). A
+    user annotation's span on the device track (Optimizer.step#SGD.step)
+    is no kernel and is left out of both."""
+    from torch.autograd import DeviceType
+
+    def on_device(e):
+        return (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and "#" not in e.key)
+    per_kernel = {}
+    for e in prof.key_averages():
+        if not on_device(e):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if on_device(e))
+    assert spans, f"{what}: no device activity traced"
+    busy_us, last = 0.0, float("-inf")
+    for start, end in spans:
+        if end > last:
+            busy_us += end - max(start, last)
+            last = end
+    busy_ms = busy_us / 1e3
+    assert busy_ms <= wall_ms, (
+        f"{what}: {busy_ms} ms on the device > {wall_ms} ms wall")
+    return per_kernel, busy_ms
+
+
 def profile_engine(params, n: int = 2048) -> dict:
     """Device time per batch by kernel, and the device's idle share, for
     one predict_specs call of n specs in each mode (torch.profiler; the
@@ -530,7 +588,6 @@ def profile_engine(params, n: int = 2048) -> dict:
     the union of its kernels' and copies' intervals: copies overlap
     kernels, so the sum of their times may exceed the wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from svision_tpu_torch.infer.engine import InferenceEngine
 
@@ -545,25 +602,7 @@ def profile_engine(params, n: int = 2048) -> dict:
             t0 = time.perf_counter()
             eng.predict_specs(specs)
             wall_ms = (time.perf_counter() - t0) * 1e3
-        per_kernel = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events() if e.device_type == DeviceType.CUDA)
-        assert spans, f"profile {mode}: no device activity traced"
-        busy_us, last = 0.0, float("-inf")
-        for start, end in spans:
-            if end > last:
-                busy_us += end - max(start, last)
-                last = end
-        busy_ms = busy_us / 1e3
-        assert busy_ms <= wall_ms, (
-            f"profile {mode}: {busy_ms} ms on the device > {wall_ms} ms wall")
+        per_kernel, busy_ms = device_time(prof, wall_ms, f"profile {mode}")
         batches = n // B
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:16]
         out[mode] = dict(
@@ -1036,10 +1075,346 @@ def check_shards(fx: dict, work: str, solo: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+GPU = "cuda"                 # phase 7's device
+TRAIN_B = 64                 # the training batch of the rates and profile
+RATE_STEPS = 12              # steps per epoch of each rate run
+
+# launches per step of each training run, and per batch of evaluate
+PER_STEP = {
+    "fit": {"render_raster": 1, "bias_relu_pool_lrn": 0,
+            "conv1_fused_raster": 0},
+    "fit_device_image": {"render_raster": 1, "bias_relu_pool_lrn": 0,
+                         "conv1_fused_raster": 0},
+    "fit_device_s2d": {"render_raster": 0, "bias_relu_pool_lrn": 0,
+                       "conv1_fused_raster": 0},
+    "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
+                 "conv1_fused_raster": 0}}
+
+
+def labeled(n: int, seed: int):
+    """n random specs with labels 0-4."""
+    return random_specs(n, seed=seed), np.arange(n, dtype=np.int32) % 5
+
+
+@contextlib.contextmanager
+def counted_steps(name: str, kind: str, steps: int):
+    """Count the block's kernel launches (every count set to 0 on entry)
+    and hold them to PER_STEP[kind] x steps on exit. Yields a dict that
+    gets "launches" and "wall_s" (host clock, synchronized)."""
+    import torch
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = {"batches": {"steps": steps}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yield out
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    want = {k: v * steps for k, v in PER_STEP[kind].items()}
+    assert out["launches"] == want, \
+        f"{name}: launches {out['launches']} != {want}"
+
+
+def check_train_step(params) -> dict:
+    """One f32 step (clip 1, lr 5e-3, keep_prob 1) at batch 32 on the card
+    and on the CPU from the same weights and images: the loss within 1e-4
+    relative, each gradient within 1e-2 of its largest entry, each
+    parameter after the update within 1e-4 of its largest value plus 1e-2
+    of its largest update; every parameter has a gradient."""
+    import torch
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet, params_to_numpy
+    specs, labels = labeled(32, seed=8)
+    res = {}
+    for dev in ("cpu", GPU):
+        model = AlexNet.trainable(params, device=dev)
+        _, step = train.make_train_step(model, learning_rate=5e-3,
+                                        clip_norm=1.0, keep_prob=1.0)
+        images = train.specs_to_images(specs, device=dev)
+        t0 = time.perf_counter()
+        loss = float(step(images, torch.from_numpy(labels).to(dev),
+                          torch.Generator(device=dev).manual_seed(0)))
+        step_s = time.perf_counter() - t0
+        named = dict(model.named_parameters())
+        missing = [k for k, v in named.items() if v.grad is None]
+        assert len(named) == 16 and not missing, f"{dev}: no grad {missing}"
+        res[dev] = (loss, params_to_numpy(named),
+                    params_to_numpy({k: v.grad for k, v in named.items()}),
+                    step_s)
+        del model, step, named
+    (lc, pc, gc, sc), (lg, pg, gg, sg) = res["cpu"], res[GPU]
+    out = dict(loss_cpu=lc, loss_gpu=lg, loss_rel_err=abs(lg - lc) / abs(lc),
+               cpu_step_s=sc, first_gpu_step_s=sg, grad_rel_err={},
+               param_err_over_tol={})
+    assert out["loss_rel_err"] <= 1e-4, f"train step: loss {lg} vs {lc}"
+    for k in pc:
+        out["grad_rel_err"][k] = float(np.abs(gg[k] - gc[k]).max()
+                                       / np.abs(gc[k]).max())
+        assert out["grad_rel_err"][k] <= 1e-2, f"train step: grad {k}"
+        p0 = np.asarray(params[k], np.float32)
+        tol = (1e-4 * np.abs(pc[k]).max() + 1e-2 * np.abs(pc[k] - p0).max())
+        out["param_err_over_tol"][k] = float(np.abs(pg[k] - pc[k]).max() / tol)
+        assert out["param_err_over_tol"][k] <= 1.0, f"train step: param {k}"
+    log(f"train step f32 B=32, GPU vs CPU: loss {lg} vs {lc}, worst grad "
+        f"rel err {max(out['grad_rel_err'].values()):.3g}, worst param "
+        f"err/tol {max(out['param_err_over_tol'].values()):.3g}; all 16 "
+        "parameters have gradients")
+    return out
+
+
+def check_bf16_loss(params) -> dict:
+    """Eight bf16 s2d steps on one repeated batch: a falling loss."""
+    import torch
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet
+    from svision_tpu_torch.ops import rasterize
+    dev = torch.device(GPU)
+    specs, labels = labeled(TRAIN_B, seed=9)
+    seg = [torch.from_numpy(a).to(dev)
+           for a in rasterize.specs_to_endpoints(specs)]
+    x = rasterize.render_raster_s2d(*seg, dtype=torch.bfloat16)
+    y = torch.from_numpy(labels).to(dev)
+    model = AlexNet.trainable(params, device=dev)
+    _, step = train.make_train_step(model, learning_rate=1e-3, clip_norm=1.0,
+                                    keep_prob=1.0, compute_dtype=torch.bfloat16,
+                                    s2d=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = [float(step(x, y, gen)) for _ in range(8)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], \
+        f"bf16 loss did not fall: {losses}"
+    log(f"bf16 s2d, 8 steps on one batch of {TRAIN_B}: loss {losses}")
+    return {"losses": losses}
+
+
+def train_rates(params) -> dict:
+    """Training images/s at batch TRAIN_B, each run two epochs of
+    RATE_STEPS steps: the rate is the second epoch's (the first warms
+    cuDNN up), read from the epoch-end log call, which follows a sync."""
+    import torch
+    from svision_tpu_torch.models.train import fit, fit_device
+    specs, labels = labeled(TRAIN_B * RATE_STEPS, seed=10)
+    configs = [("fit_f32", "fit", fit, torch.float32, {}),
+               ("fit_bf16", "fit", fit, torch.bfloat16, {}),
+               ("fit_device_s2d_f32", "fit_device_s2d", fit_device,
+                torch.float32, {"s2d": True}),
+               ("fit_device_s2d_bf16", "fit_device_s2d", fit_device,
+                torch.bfloat16, {"s2d": True}),
+               ("fit_device_image_f32", "fit_device_image", fit_device,
+                torch.float32, {"s2d": False})]
+    out = {}
+    for name, kind, fn, dtype, kw in configs:
+        stamps = []
+        with counted_steps(name, kind, 2 * RATE_STEPS) as r:
+            _, hist = fn(params, specs, labels, epochs=2, batch_size=TRAIN_B,
+                         compute_dtype=dtype, device=GPU,
+                         log=lambda m: stamps.append(time.perf_counter()),
+                         **kw)
+        assert np.isfinite(hist).all(), f"{name}: loss {hist}"
+        r["images_per_s"] = RATE_STEPS * TRAIN_B / (stamps[1] - stamps[0])
+        r["history"] = hist
+        out[name] = r
+        log(f"train rate {name} ({REPORT['device']['nvidia_smi']}): "
+            f"{r['images_per_s']:.1f} images/s, launches {r['launches']}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(params) -> dict:
+    """One bf16 s2d fit_device step (the s2d raster of a batch of 64 plus
+    the train step) under torch.profiler: device time by kernel and the
+    idle share. Then the step's host-clock time back to back (host_clock_ms),
+    and CUDA-event times, the queue held, of two of its parts: the plain
+    s2d raster, and the differentiable bias/ReLU/pool/LRN ops (forward
+    and backward) at the conv1 and conv2 tails; each part's share is of
+    the step's device-busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet
+    from svision_tpu_torch.ops import rasterize
+    dev = torch.device(GPU)
+    bf = torch.bfloat16
+    specs, labels = labeled(TRAIN_B, seed=11)
+    seg = [torch.from_numpy(a).to(dev)
+           for a in rasterize.specs_to_endpoints(specs)]
+    y = torch.from_numpy(labels).to(dev)
+    model = AlexNet.trainable(params, device=dev)
+    _, step = train.make_train_step(model, learning_rate=5e-3, clip_norm=1.0,
+                                    compute_dtype=bf, s2d=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def one():
+        return step(rasterize.render_raster_s2d(*seg, dtype=bf), y, gen)
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    per_kernel, busy_ms = device_time(prof, prof_ms, "profile train step")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:24]
+    out = dict(batch=TRAIN_B, wall_ms=prof_ms, device_ms=busy_ms,
+               device_time_sum_ms=sum(per_kernel.values()),
+               idle_share=1.0 - busy_ms / prof_ms,
+               launches_traced=sum(e.count for e in prof.key_averages()
+                                   if e.key in ("cudaLaunchKernel",
+                                                "cuLaunchKernel",
+                                                "cudaLaunchKernelExC")),
+               top_kernels_ms={k[:120]: v for k, v in top})
+
+    x = rasterize.render_raster_s2d(*seg, dtype=bf)
+    step_ms = host_clock_ms(one)
+    raster_ms = time_ms(lambda: rasterize.render_raster_s2d(*seg, dtype=bf),
+                        reps=PLAIN_REPS)
+    train_only_ms = host_clock_ms(lambda: step(x, y, gen))
+    tails = {}
+    tgen = torch.Generator(device=dev).manual_seed(3)
+    for tail, c, hw in (("conv1", 96, 55), ("conv2", 256, 27)):
+        h = torch.randn((TRAIN_B, c, hw, hw), generator=tgen, device=dev).to(
+            bf).contiguous(memory_format=torch.channels_last).requires_grad_()
+        b = torch.zeros(c, device=dev, dtype=bf, requires_grad=True)
+        ho = (hw - 3) // 2 + 1
+        g = torch.randn((TRAIN_B, c, ho, ho), generator=tgen,
+                        device=dev).to(bf)
+
+        def fwd_bwd(h=h, b=b, g=g):
+            train.bias_relu_pool_lrn_autograd(h, b).backward(g)
+        tails[tail] = time_ms(fwd_bwd, reps=5)
+    out.update(step_wall_ms=step_ms, train_step_wall_ms=train_only_ms,
+               s2d_raster_ms=raster_ms, s2d_raster_share=raster_ms / busy_ms,
+               bias_relu_pool_lrn_fwd_bwd_ms=tails,
+               bias_relu_pool_lrn_share=sum(tails.values()) / busy_ms)
+    log(f"profile train step bf16 s2d B={TRAIN_B} "
+        f"({REPORT['device']['nvidia_smi']}): {prof_ms:.3f} ms wall "
+        f"profiled, {busy_ms:.3f} ms on the device, idle share "
+        f"{out['idle_share']:.3f}; unprofiled step {step_ms:.3f} ms wall "
+        f"(train step alone {train_only_ms:.3f}); held: plain s2d raster "
+        f"{raster_ms:.3f} ms ({out['s2d_raster_share']:.1%} of device "
+        f"busy), bias/ReLU/pool/LRN fwd+bwd {tails} "
+        f"({out['bias_relu_pool_lrn_share']:.1%})")
+    return out
+
+
+def check_dp_tp(params) -> dict:
+    """The DP x TP step over the visible GPUs (model axis 2) against the
+    one-device step, both computing in f64, which holds the grid's logic
+    (the splits, the partial sums, the gradient sums) and not rounding: in
+    f32, half batches reach cuBLAS kernels that round fc6's
+    pre-activations otherwise, a few flip sign at the ReLU, and fc6's
+    gradient moved 0.9% of its largest entry on four H100s. Loss
+    (from fc8's f32 logits either way) within 1e-6 relative, the (f32)
+    gradients within 1e-5 of their largest entry."""
+    import torch
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet, params_to_numpy
+    from svision_tpu_torch.parallel import mesh as M
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("DP x TP training step: one GPU visible, so it was not run on "
+            "the card")
+        return {"run": False}
+    grid = M.make_train_mesh(n // 2, 2, device=GPU)
+    dev0 = grid[0][0]
+    cells = M.shard_params_tp(params, grid)
+    f64 = torch.float64
+    _, mstep = train.make_mesh_train_step(cells, learning_rate=5e-3,
+                                          clip_norm=1.0, keep_prob=1.0,
+                                          compute_dtype=f64)
+    specs, labels = labeled(32, seed=12)
+    images = train.specs_to_images(specs, device=dev0)
+    y = torch.from_numpy(labels).to(dev0)
+    gens = {d: torch.Generator(device=d) for row in grid for d in row}
+    mloss = float(mstep(images, y, gens))
+    model = AlexNet.trainable(params, device=dev0)
+    _, step = train.make_train_step(model, learning_rate=5e-3, clip_norm=1.0,
+                                    keep_prob=1.0, compute_dtype=f64)
+    loss = float(step(images, y, torch.Generator(device=dev0)))
+    want = params_to_numpy({k: v.grad for k, v in model.named_parameters()})
+    got = M.gather_params([[{k: t.grad for k, t in c.items()}
+                            for c in cells[0]]])
+    err = {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+           for k in want}
+    assert abs(mloss - loss) <= 1e-6 * abs(loss), (mloss, loss)
+    assert max(err.values()) <= 1e-5, err
+    split = tuple(cells[0][0]["fc6.weight"].shape)
+    assert split == (4096 // 2, 9216), split
+    log(f"DP x TP step on a {len(grid)}x2 grid: loss {mloss} vs {loss}, "
+        f"worst grad rel err {max(err.values()):.3g}, fc6 split {split}")
+    return {"run": True, "grid": [len(grid), 2], "loss": mloss,
+            "one_device_loss": loss, "grad_rel_err": err}
+
+
+def check_trained_cli(fx: dict, work: str) -> dict:
+    """The mini closed loop: build_dataset(n_per_type=4), two epochs of
+    fit_device (s2d, f32), evaluate, save; the trained weights then go
+    through phase 4's CLI once in the default mode, which must write a
+    VCF. Every run's launches are held."""
+    from svision_tpu_torch import cli
+    from svision_tpu_torch.models.alexnet import init_params
+    from svision_tpu_torch.models.checkpoint import save_params
+    from svision_tpu_torch.models.dataset import build_dataset
+    from svision_tpu_torch.models.train import evaluate, fit_device
+    out = {"runs": {}}
+    t0 = time.perf_counter()
+    specs, labels, _ = build_dataset(n_per_type=4, seed=11)
+    out["dataset_s"] = time.perf_counter() - t0
+    bs = 32
+    steps = len(labels) // bs
+    with counted_steps("mini loop fit_device", "fit_device_s2d",
+                       2 * steps) as r:
+        trained, hist = fit_device(init_params(0), specs, labels, epochs=2,
+                                   batch_size=bs, seed=1, device=GPU)
+    assert np.isfinite(hist).all(), hist
+    out["runs"]["train_fit_device_loop"] = r
+    batches = -(-len(labels) // 64)
+    with counted_steps("evaluate", "evaluate", batches) as r:
+        acc = evaluate(trained, specs, labels, device=GPU)
+    out["runs"]["train_evaluate"] = r
+    weights = os.path.join(work, "trained.npz")
+    save_params(trained, weights)
+    with counted() as r:
+        vcf = cli.run_pipeline(cli.parse_arguments(
+            ["-o", os.path.join(work, "trained_cli"), "-b", fx["bam"],
+             "-g", fx["genome"], "-m", weights, "-n", "synthsample",
+             "-s", "3"]))
+    assert os.path.exists(vcf), f"the trained weights' CLI run wrote no {vcf}"
+    hold_launches("trained cli", "default", r, warmups=1,
+                  devices=mesh_devices())
+    out["runs"]["cli_trained"] = r
+    out.update(examples=len(labels), history=hist, train_acc=acc,
+               vcf_records=len(_records(vcf)))
+    log(f"mini closed loop: {len(labels)} examples in "
+        f"{out['dataset_s']:.1f} s, fit_device loss {hist}, train acc "
+        f"{acc:.3f}, CLI with the trained weights wrote {vcf} "
+        f"({out['vcf_records']} records)")
+    return out
+
+
+def check_training(params, fx: dict, work: str) -> dict:
+    out = {"step_vs_cpu": check_train_step(params),
+           "bf16_loss": check_bf16_loss(params),
+           "rates": train_rates(params),
+           "profile": profile_train_step(params),
+           "dp_tp": check_dp_tp(params),
+           "mini_loop": check_trained_cli(fx, work)}
+    out["runs"] = {f"train_{k}": v for k, v in out["rates"].items()}
+    out["runs"].update(out["mini_loop"]["runs"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     """The kernels line: each kernel's launches in every main-path run of
-    phases 4-6 (runs: name -> {"launches", "batches"}), its error against
+    phases 4-7 (runs: name -> {"launches", "batches"}), its error against
     its plain version, and its times and bound at the main path's dtype."""
     info = {
         "render_raster": ("svision_tpu_torch/csrc/raster.cu",
@@ -1145,12 +1520,16 @@ def main(argv=None) -> int:
         REPORT["shards"] = check_shards(fx, work, REPORT["serve"]["solo"])
         log(f"phase 6: sharding and cohorts ok "
             f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        REPORT["train"] = check_training(params, fx, work)
+        log(f"phase 7: training ok ({time.perf_counter() - t0:.1f} s)")
     REPORT["total_s"] = time.perf_counter() - t_all
     log(f"chip_smoke: {REPORT['total_s']:.1f} s in all")
 
     runs = {f"cli_{k}": REPORT["cli"][k] for k in ("default", "exact")}
     runs.update(REPORT["serve"]["runs"])
     runs.update(REPORT["shards"]["runs"])
+    runs.update(REPORT["train"]["runs"])
     line = kernel_line(REPORT["kernels"], runs, build)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

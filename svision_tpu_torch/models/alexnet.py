@@ -55,7 +55,7 @@ _FC_SPECS = (
 
 __all__ = ["AlexNet", "IMAGE_MEAN", "NUM_CLASSES", "fold_conv1_math",
            "fold_conv1_params", "fold_params_bf16", "init_params", "lrn",
-           "params_from_numpy"]
+           "params_from_numpy", "params_to_numpy"]
 
 
 def init_params(seed: int = 0, num_classes: int = NUM_CLASSES) -> Dict[str, np.ndarray]:
@@ -93,21 +93,37 @@ _S2D = 4          # space-to-depth factor == conv1 stride
 _K1_PAD = 12      # conv1 kernel 11 padded to a multiple of the factor
 
 
-def fold_conv1_math(w: np.ndarray, b: np.ndarray):
+def fold_conv1_math(w, b):
     """[11,11,3,96] -> [3,3,48,96] with the x255 scale folded in; the bias
     absorbs the IMAGE_MEAN shift (VALID conv: every tap sees a
     mean-subtracted pixel). Channel interleave is (c,p,q), the order of
-    render_raster_s2d's channels."""
-    mean = np.asarray(IMAGE_MEAN).astype(w.dtype)
-    b_fold = b - np.einsum("hwco,c->o", w, mean)
-    pad = _K1_PAD - w.shape[0]
-    w_pad = np.pad(w * np.float32(255.0),
-                   ((0, pad), (0, pad), (0, 0), (0, 0)))
+    render_raster_s2d's channels.
+
+    One implementation for numpy arrays (the host fold of inference) and
+    torch tensors (the differentiable fold of models/train.py: it is linear
+    in (w, b), so gradients reach the reference-space weights), so the two
+    cannot drift. The weights come out bit-equal either way; the bias term
+    is a 363-term contraction, which np.einsum sums in sequence and
+    torch.einsum in another order, so the two biases differ by f32
+    rounding."""
+    if isinstance(w, torch.Tensor):
+        mean = torch.tensor(IMAGE_MEAN, dtype=w.dtype, device=w.device)
+        b_fold = b - torch.einsum("hwco,c->o", w, mean)
+        pad = _K1_PAD - w.shape[0]
+        w_pad = F.pad(w * 255.0, (0, 0, 0, 0, 0, pad, 0, pad))
+        permute = torch.permute
+    else:
+        mean = np.asarray(IMAGE_MEAN).astype(w.dtype)
+        b_fold = b - np.einsum("hwco,c->o", w, mean)
+        pad = _K1_PAD - w.shape[0]
+        w_pad = np.pad(w * np.float32(255.0),
+                       ((0, pad), (0, pad), (0, 0), (0, 0)))
+        permute = np.transpose
     kh = _K1_PAD // _S2D
     # [12,12,3,96] -> [a,p,b,q,c,o] -> [a,b,(c,p,q),o] = [3,3,48,96]
-    w_s2d = (w_pad.reshape(kh, _S2D, kh, _S2D, 3, w.shape[3])
-             .transpose(0, 2, 4, 1, 3, 5)
-             .reshape(kh, kh, _S2D * _S2D * 3, w.shape[3]))
+    w_s2d = permute(w_pad.reshape(kh, _S2D, kh, _S2D, 3, w.shape[3]),
+                    (0, 2, 4, 1, 3, 5)).reshape(kh, kh, _S2D * _S2D * 3,
+                                                w.shape[3])
     return w_s2d, b_fold
 
 
@@ -156,6 +172,23 @@ def params_from_numpy(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def params_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of params_from_numpy: an AlexNet state dict (or its
+    named parameters) -> TF-named contiguous numpy arrays, conv OIHW ->
+    HWIO and fc [out,in] -> [in,out], which models/checkpoint.save_params
+    writes as a checkpoint both packages read."""
+    out: Dict[str, np.ndarray] = {}
+    for key, t in state.items():
+        layer, kind = key.split(".")
+        t = t.detach().cpu()
+        if kind == "weight":
+            t = t.permute(2, 3, 1, 0) if layer.startswith("conv") else t.t()
+            out[f"{layer}/weights"] = np.ascontiguousarray(t.numpy())
+        else:
+            out[f"{layer}/biases"] = np.ascontiguousarray(t.numpy())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The network
 # ---------------------------------------------------------------------------
@@ -197,6 +230,18 @@ class AlexNet(nn.Module):
             conv.weight.data = conv.weight.data.contiguous(
                 memory_format=torch.channels_last)
         return model.eval().requires_grad_(False)
+
+    @classmethod
+    def trainable(cls, params: Mapping[str, object],
+                  device="cpu") -> "AlexNet":
+        """The network as training holds it: f32 nn.Parameters that
+        require grad, in reference space (conv1 stays [96,3,11,11]; the s2d
+        trainer folds it inside its forward), copied from params, so the
+        caller's arrays are never updated in place. Train mode."""
+        copied = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                  for k, v in params.items()}
+        model = cls.from_params(copied, device=device)
+        return model.train().requires_grad_(True)
 
     @property
     def compute_dtype(self) -> torch.dtype:

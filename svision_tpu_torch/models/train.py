@@ -1,0 +1,549 @@
+"""Training of the similarity-image CNN, in PyTorch.
+
+Counterpart of the JAX package's models/train.py: softmax cross-entropy
+over the 5 SV classes with dropout after fc6 and fc7 (the reference's
+placement, alexnet.py:51-55), SGD with momentum 0.9 behind a global-norm
+clip, and the training pipeline from labeled candidate specs to a
+TF1-named checkpoint that both packages read.
+
+The differentiable forward composes torch ops (cuDNN/cuBLAS convolutions
+and GEMMs, F.max_pool2d, the TF-semantics lrn), as the JAX trainer
+composes XLA ops. The hand-written kernels are not differentiable and
+refuse inputs that require grad; K1 renders the image path's batches,
+which need no gradient, and K1 + K2 run evaluate's inference forward.
+
+Randomness comes from explicit torch.Generators (dropout, fit_device's
+shuffle and augmentation) and, in fit, from the JAX loop's
+np.random.RandomState call order, so fit is step-for-step reproducible
+against the JAX package at keep_prob=1.
+
+f32 training runs under training_precision (TF32 off, and oneDNN off on
+the CPU), so the card's step matches the CPU's; bf16 compute is the fast
+mode, with f32 master weights and f32 logits.
+
+    python -m svision_tpu_torch.models.train --data d.npz -o w.npz
+        [--init w0.npz] [--epochs 10] [--batch-size 64] [--lr 1e-3]
+        [--seed 0] [--bf16] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from svision_tpu_torch.infer.engine import exact_f32, resolve_device
+from svision_tpu_torch.models import alexnet
+from svision_tpu_torch.models.alexnet import (AlexNet, fold_conv1_math, lrn,
+                                              params_to_numpy)
+from svision_tpu_torch.ops import rasterize
+from svision_tpu_torch.ops.raster_kernel import render_images
+from svision_tpu_torch.ops.rasterize import CANVAS
+
+# AlexNet parameter names (conv1.weight, ...) -> tensors, reference space
+Params = Mapping[str, torch.Tensor]
+
+
+@contextlib.contextmanager
+def training_precision(compute_dtype):
+    """f32 trains with TF32 off (exact_f32), so the card computes what the
+    CPU does, and without oneDNN on the CPU: its f32 convolutions round
+    identical input patches differently at different positions, so the
+    blank regions of a raster stop tying where XLA's and cuDNN's tie, and
+    max-pool sends the gradient elsewhere (conv weight gradients then
+    differ from the JAX package's by 1e-3 of their largest). bf16 runs
+    as it is."""
+    if compute_dtype != torch.float32:
+        yield
+        return
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        with exact_f32():
+            yield
+    finally:
+        torch.backends.mkldnn.enabled = saved
+
+
+def _features(p: Params, h: torch.Tensor, cd, s2d: bool) -> torch.Tensor:
+    """The conv stack on NCHW input in cd -> [N,9216] in cd, flattened in
+    NHWC order (the TF reshape, alexnet.py:49). Every intermediate is in
+    cd, as the JAX trainer's `inter` dtype is. s2d=True folds conv1 inside
+    the graph (fold_conv1_math): the input is the {0,1} s2d raster, and
+    the gradient reaches the reference-space [96,3,11,11] weights."""
+    for name, kh, _, _, stride, padding, groups in alexnet._CONV_SPECS:
+        w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+        pad = 0 if padding == "VALID" else kh // 2
+        if s2d and name == "conv1":
+            w_s2d, b = fold_conv1_math(w.permute(2, 3, 1, 0), b)
+            w, stride, pad = w_s2d.permute(3, 2, 0, 1), 1, 0
+        h = F.conv2d(h, w.to(cd), None, stride, pad, 1, groups)
+        if name in ("conv1", "conv2"):
+            h = bias_relu_pool_lrn_autograd(h, b.to(cd))
+        else:
+            h = torch.relu(h + b.to(cd)[:, None, None])
+            if name == "conv5":
+                h = F.max_pool2d(h, 3, 2)
+    return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+
+
+def bias_relu_pool_lrn_autograd(h: torch.Tensor, b: torch.Tensor):
+    """What K2 computes, in differentiable torch ops on NCHW h: relu(h +
+    b) -> 3x3 stride-2 max-pool -> TF LRN, in h's dtype."""
+    h = F.max_pool2d(torch.relu(h + b[:, None, None]), 3, 2)
+    return lrn(h.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def _dense_relu(h, w, b, cd):
+    return torch.relu(F.linear(h, w.to(cd), b.to(cd)))
+
+
+def _dropout(h, keep_prob: float, generator: torch.Generator):
+    """Inverted dropout, the mask drawn from generator (on h's device)."""
+    keep = torch.rand(h.shape, generator=generator, device=h.device) < keep_prob
+    return torch.where(keep, h / keep_prob, 0.0)
+
+
+def _head(p: Params, h, generator, keep_prob: float, cd):
+    for name in ("fc6", "fc7"):
+        h = _dense_relu(h, p[f"{name}.weight"], p[f"{name}.bias"], cd)
+        h = _dropout(h, keep_prob, generator)
+    # fc8 in f32: f32 logits for the loss
+    return F.linear(h.float(), p["fc8.weight"].float(), p["fc8.bias"].float())
+
+
+def forward_train(p: Params, x: torch.Tensor, generator: torch.Generator,
+                  keep_prob: float = 0.5, compute_dtype=torch.float32):
+    """Logits f32 [N,5] from NHWC [N,227,227,3] mean-subtracted images,
+    with dropout after fc6 and fc7. Weights are cast to compute_dtype
+    inside (f32 master weights)."""
+    h = x.to(compute_dtype).permute(0, 3, 1, 2)
+    return _head(p, _features(p, h, compute_dtype, s2d=False), generator,
+                 keep_prob, compute_dtype)
+
+
+def forward_train_s2d(p: Params, raster_s2d: torch.Tensor,
+                      generator: torch.Generator, keep_prob: float = 0.5,
+                      compute_dtype=torch.float32):
+    """Logits f32 [N,5] from the {0,1} raster in conv1's space-to-depth
+    layout, NHWC [N,57,57,48] (rasterize.render_raster_s2d), through the
+    in-graph conv1 fold: same parameters and checkpoints as
+    forward_train, no [N,227,227,3] image and no 11x11 stride-4 conv."""
+    h = raster_s2d.to(compute_dtype).permute(0, 3, 1, 2)
+    return _head(p, _features(p, h, compute_dtype, s2d=True), generator,
+                 keep_prob, compute_dtype)
+
+
+def loss_fn(p: Params, images, labels, generator, keep_prob: float = 0.5,
+            compute_dtype=torch.float32, s2d: bool = False) -> torch.Tensor:
+    """Mean softmax cross-entropy."""
+    fwd = forward_train_s2d if s2d else forward_train
+    logits = fwd(p, images, generator, keep_prob, compute_dtype)
+    return F.cross_entropy(logits, labels.long())
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """Scale grads in place by min(1, max_norm / global norm), optax's
+    clip_by_global_norm (torch's clip_grad_norm_ divides by norm + 1e-6).
+    No host sync; the grads may lie on several devices. The norm is summed
+    in f64: an f32 norm over fc6's 37.7 M entries was off by 5e-4 on the
+    CPU. Returns the norm."""
+    dev = grads[0].device
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float64).to(dev)
+         for g in grads]))
+    scale = torch.clamp(max_norm / norm, max=1.0).float()
+    for g in grads:
+        g.mul_(scale.to(g.device))
+    return norm
+
+
+def make_train_step(model: AlexNet, *, learning_rate: float = 1e-3,
+                    clip_norm: Optional[float] = None, keep_prob: float = 0.5,
+                    compute_dtype=torch.float32, s2d: bool = False):
+    """Returns (optimizer, train_step). The JAX package's make_train_step
+    with optax.sgd(learning_rate, momentum=0.9), chained after
+    clip_by_global_norm(clip_norm) when clip_norm is given: torch's SGD
+    without dampening keeps the same trace (g + 0.9 t) and update (-lr t).
+
+    train_step(images, labels, generator) updates model's parameters in
+    place and returns the loss as a device tensor (no host sync). s2d=True:
+    images is the {0,1} s2d raster [N,57,57,48]."""
+    params = dict(model.named_parameters())
+    opt = torch.optim.SGD(params.values(), lr=learning_rate, momentum=0.9)
+
+    def train_step(images, labels, generator):
+        opt.zero_grad(set_to_none=True)
+        with training_precision(compute_dtype):
+            loss = loss_fn(params, images, labels, generator, keep_prob,
+                           compute_dtype, s2d)
+            loss.backward()
+        if clip_norm is not None:
+            clip_by_global_norm_([q.grad for q in params.values()], clip_norm)
+        opt.step()
+        return loss.detach()
+
+    return opt, train_step
+
+
+# ---------------------------------------------------------------------------
+# DP x TP: a grid of devices, batch rows on 'data', fc6/fc7 split on 'model'
+# ---------------------------------------------------------------------------
+
+def make_mesh_train_step(cells, *, learning_rate: float = 1e-3,
+                         clip_norm: Optional[float] = None,
+                         keep_prob: float = 0.5, compute_dtype=torch.float32):
+    """The train step over parallel.mesh placements (shard_params_tp or
+    replicate_params): cells[d][m] holds the parameters of the device at
+    data row d, model column m. Each data row takes an equal share of the
+    batch's rows; each cell runs the conv stack and its fc6 columns, and
+    fc7's partial products are summed over the model axis on the row's
+    first device, which runs the rest. Gradients are summed over every
+    cell that holds a copy of the same tensor (the data axis, and the
+    model axis for replicated ones) before the clip, and every copy then
+    takes the same update. Returns (optimizer, train_step) like
+    make_train_step; train_step(images, labels, generators) takes a
+    {device: torch.Generator} map for dropout."""
+    from svision_tpu_torch.parallel.mesh import holders
+    groups = holders(cells)
+    leaves = [t for group in groups for t in group]
+    opt = torch.optim.SGD(leaves, lr=learning_rate, momentum=0.9)
+    nd, cd = len(cells), compute_dtype
+
+    head0 = cells[0][0]["fc8.weight"].device
+
+    def _mesh_loss(images, labels, generators):
+        rows = images.shape[0] // nd
+        losses = []
+        for d, row in enumerate(cells):
+            x = images[d * rows:(d + 1) * rows]
+            y = labels[d * rows:(d + 1) * rows]
+            dev0 = row[0]["fc8.weight"].device
+            fc7 = None
+            for cell in row:
+                dev = cell["fc8.weight"].device
+                h = _features(cell, x.to(dev).to(cd).permute(0, 3, 1, 2), cd,
+                              s2d=False)
+                h = _dense_relu(h, cell["fc6.weight"], cell["fc6.bias"], cd)
+                h = _dropout(h, keep_prob, generators[dev])
+                part = F.linear(h, cell["fc7.weight"].to(cd)).to(dev0)
+                fc7 = part if fc7 is None else fc7 + part
+            h = torch.relu(fc7 + row[0]["fc7.bias"].to(cd))
+            h = _dropout(h, keep_prob, generators[dev0])
+            logits = F.linear(h.float(), row[0]["fc8.weight"].float(),
+                              row[0]["fc8.bias"].float())
+            losses.append(F.cross_entropy(logits, y.to(dev0).long()).to(head0))
+        return torch.stack(losses).mean()
+
+    def train_step(images, labels, generators):
+        opt.zero_grad(set_to_none=True)
+        with training_precision(cd):
+            loss = _mesh_loss(images, labels, generators)
+            loss.backward()
+        grads = []
+        for group in groups:
+            g = torch.zeros_like(group[0])
+            for t in group:
+                if t.grad is not None:
+                    g += t.grad.to(g.device)
+            grads.append(g)
+        if clip_norm is not None:
+            clip_by_global_norm_(grads, clip_norm)
+        for group, g in zip(groups, grads):
+            for t in group:
+                t.grad = g.to(t.device)
+        opt.step()
+        return loss.detach()
+
+    return opt, train_step
+
+
+# ---------------------------------------------------------------------------
+# Training pipeline: labeled candidate specs -> trained checkpoint
+# ---------------------------------------------------------------------------
+
+def specs_to_images(specs, flip: bool = False, jitter_rng=None,
+                    max_shift: int = 10, max_jitter: int = 2,
+                    device=None) -> torch.Tensor:
+    """[N,12] specs -> [N,227,227,3] mean-subtracted f32 images on device
+    (K1 and normalize_raster on the card, their plain versions on the CPU).
+
+    flip=True mirrors the image left-right, the reference training recipe's
+    cv2.flip (a mirror of the ref axis keeps the SV class). jitter_rng (an
+    np.random.RandomState) shifts each image by up to +-max_shift px and
+    each endpoint by up to +-max_jitter px (jitter_endpoints_np)."""
+    dev = resolve_device(device)
+    ep, vis, rev = rasterize.specs_to_endpoints(specs)
+    if jitter_rng is not None:
+        ep = jitter_endpoints_np(ep, jitter_rng, max_shift, max_jitter)
+    seg = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (ep, vis, rev)]
+    images = render_images(*seg, dtype=torch.float32)
+    if flip:
+        images = torch.flip(images, dims=[2])
+    return images
+
+
+def jitter_endpoints_np(ep, rng, max_shift: int = 10, max_jitter: int = 2):
+    """Host endpoint augmentation: per-image (dc, dr) translation +
+    per-endpoint jitter, clamped to the canvas. ep int32 [N, S, 4]
+    (col0,row0,col1,row1)."""
+    n, s, _ = ep.shape
+    shift = rng.randint(-max_shift, max_shift + 1, (n, 1, 2))
+    jit = rng.randint(-max_jitter, max_jitter + 1, (n, s, 4))
+    out = ep.astype(np.int64)
+    out[..., 0::2] += shift[..., 0:1] + jit[..., 0::2]   # cols
+    out[..., 1::2] += shift[..., 1:2] + jit[..., 1::2]   # rows
+    return np.clip(out, 0, CANVAS - 1).astype(ep.dtype)
+
+
+def jitter_endpoints_torch(ep: torch.Tensor, generator: torch.Generator,
+                           max_shift: int = 10, max_jitter: int = 2):
+    """Device twin of jitter_endpoints_np (fit_device's augmentation)."""
+    n, s, _ = ep.shape
+    shift = torch.randint(-max_shift, max_shift + 1, (n, 1, 2),
+                          generator=generator, device=ep.device,
+                          dtype=ep.dtype)
+    jit = torch.randint(-max_jitter, max_jitter + 1, (n, s, 4),
+                        generator=generator, device=ep.device, dtype=ep.dtype)
+    # (dc, dr, dc, dr) over (col0, row0, col1, row1)
+    return torch.clamp(ep + shift.repeat(1, 1, 2) + jit, 0,
+                       CANVAS - 1).to(ep.dtype)
+
+
+def fragment_endpoints_torch(ep, vis, rev, generator: torch.Generator,
+                             split_prob: float = 0.3, gap_max: int = 3):
+    """Raster-noise augmentation: split segments into two colinear
+    sub-segments with a small pixel gap, the fragmented-diagonal look of
+    hashplot-realigned noisy sequence. ep [N,S,4] -> [N,2S,4] (vis/rev
+    widen to match); un-split segments keep their line with an invisible
+    padding slot.
+
+    As in the JAX package, the s2d raster draws segment slots 0 and 1
+    only, so there a split segment keeps its first sub-segment and loses
+    the second."""
+    c0, r0, c1, r1 = ep.unbind(-1)
+    dc, dr = c1 - c0, r1 - r0
+    major = torch.maximum(dc.abs(), dr.abs())
+    dev = ep.device
+    f = 0.35 + 0.3 * torch.rand(major.shape, generator=generator, device=dev)
+    g = torch.randint(1, gap_max + 1, major.shape, generator=generator,
+                      device=dev, dtype=major.dtype)
+    gfrac = g / torch.clamp(major, min=1)
+    f1, f2 = f - gfrac, f + gfrac
+    m1 = torch.stack([c0 + torch.round(dc * f1), r0 + torch.round(dr * f1)],
+                     -1).to(ep.dtype)
+    m2 = torch.stack([c0 + torch.round(dc * f2), r0 + torch.round(dr * f2)],
+                     -1).to(ep.dtype)
+    do = ((torch.rand(major.shape, generator=generator, device=dev)
+           < split_prob) & (major >= 4 * gap_max) & vis)
+    sub1 = torch.where(do[..., None], torch.cat([ep[..., :2], m1], -1), ep)
+    sub2 = torch.cat([m2, ep[..., 2:]], -1)
+    return (torch.cat([sub1, sub2], 1), torch.cat([vis, do], 1),
+            torch.cat([rev, rev], 1))
+
+
+def fit(params, specs, labels, *, epochs: int = 3, batch_size: int = 32,
+        seed: int = 0, learning_rate: float = 1e-3, keep_prob: float = 0.5,
+        compute_dtype=torch.float32, augment: bool = True, mesh=None,
+        device=None, log=None):
+    """Train the CNN on labeled candidate specs, a host loop of one step
+    per batch; returns (params, history): TF-named numpy arrays and the
+    per-epoch mean loss.
+
+    Order, flip and jitter come from np.random.RandomState(seed) in the
+    JAX loop's call order (permutation, then per batch flip, then jitter),
+    so at keep_prob=1 the run follows the JAX package's step for step.
+    With mesh (a parallel.mesh.make_train_mesh grid) the batch is split
+    over its data rows, with fc6/fc7 tensor-parallel when it has more
+    than one model column (shard_params_tp); one device otherwise."""
+    n = len(labels)
+    if n < batch_size:
+        raise ValueError(f"need at least batch_size={batch_size} examples, "
+                         f"got {n}: zero steps would silently return the "
+                         "initial params")
+    if mesh is None:
+        dev = resolve_device(device)
+        model = AlexNet.trainable(params, device=dev)
+        _, step = make_train_step(model, learning_rate=learning_rate,
+                                  clip_norm=1.0, keep_prob=keep_prob,
+                                  compute_dtype=compute_dtype)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def result():
+            return params_to_numpy(dict(model.named_parameters()))
+    else:
+        from svision_tpu_torch.parallel import mesh as M
+        place = (M.shard_params_tp if len(mesh[0]) > 1
+                 else M.replicate_params)
+        cells = place(params, mesh)
+        dev = mesh[0][0]
+        _, step = make_mesh_train_step(cells, learning_rate=learning_rate,
+                                       clip_norm=1.0, keep_prob=keep_prob,
+                                       compute_dtype=compute_dtype)
+        gen = {d: torch.Generator(device=d).manual_seed(seed)
+               for row in mesh for d in row}
+
+        def result():
+            return M.gather_params(cells)
+
+    nprng = np.random.RandomState(seed)
+    specs = np.asarray(specs)
+    labels = torch.from_numpy(np.asarray(labels, np.int64))
+    history: List[float] = []
+    for epoch in range(epochs):
+        order = nprng.permutation(n)
+        losses = []
+        for i in range(0, n - batch_size + 1, batch_size):
+            idx = order[i:i + batch_size]
+            flip = augment and bool(nprng.randint(2))
+            images = specs_to_images(specs[idx], flip=flip,
+                                     jitter_rng=nprng if augment else None,
+                                     device=dev)
+            losses.append(step(images, labels[idx].to(dev), gen))
+        history.append(torch.stack(losses).mean().item())
+        if log:
+            log(f"epoch {epoch}: mean loss {history[-1]:.4f}")
+    return result(), history
+
+
+def fit_device(params, specs, labels, *, epochs: int = 16,
+               batch_size: int = 32, seed: int = 0,
+               learning_rate: float = 5e-3, keep_prob: float = 0.5,
+               compute_dtype=torch.float32, augment: bool = True,
+               s2d: bool = True, noise_aug: bool = False,
+               pixel_drop: float = 0.02, split_prob: float = 0.3,
+               device=None, log=None):
+    """Device-resident training: the endpoint table, labels, parameters
+    and optimizer state stay on the device, and shuffle, jitter,
+    fragmentation, the flip, the raster, pixel drop and the step all run
+    there from one device generator, with no host sync per step; the
+    loss is read once per epoch.
+
+    s2d=True (default) renders the {0,1} raster straight into conv1's
+    space-to-depth layout (the plain render_raster_s2d: no kernel) and
+    trains through the in-graph fold (forward_train_s2d); the flip is an
+    endpoint mirror (c -> 226 - c), which can differ from the image flip
+    on Bresenham tie pixels. s2d=False renders mean-subtracted images with
+    K1 and flips them. noise_aug needs s2d=True: K1 draws two segments,
+    and fragmentation makes four.
+
+    Returns (params, history) like fit()."""
+    if noise_aug and not s2d:
+        raise ValueError("fit_device: noise_aug needs s2d=True (K1 draws "
+                         "two segments a candidate; fragmentation makes four)")
+    dev = resolve_device(device)
+    specs = np.asarray(specs)
+    labels_np = np.asarray(labels, np.int64)
+    n = len(labels_np)
+    steps = n // batch_size
+    if steps == 0:
+        raise ValueError(f"need >= {batch_size} examples, have {n}")
+    ep_d, vis_d, rev_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in rasterize.specs_to_endpoints(specs))
+    labels_d = torch.from_numpy(labels_np).to(dev)
+    model = AlexNet.trainable(params, device=dev)
+    _, step = make_train_step(model, learning_rate=learning_rate,
+                              clip_norm=1.0, keep_prob=keep_prob,
+                              compute_dtype=compute_dtype, s2d=s2d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    raster_dtype = (torch.bfloat16 if compute_dtype == torch.bfloat16
+                    else torch.float32)
+    epoch_means = []
+    for epoch in range(epochs):
+        idxs = torch.randperm(n, generator=gen, device=dev)[
+            :steps * batch_size].view(steps, batch_size)
+        flips = (torch.rand(steps, generator=gen, device=dev) < 0.5
+                 if augment else torch.zeros(steps, dtype=torch.bool,
+                                             device=dev))
+        losses = []
+        for s in range(steps):
+            idx = idxs[s]
+            ep_b, vis_b, rev_b = ep_d[idx], vis_d[idx], rev_d[idx]
+            if augment:
+                ep_b = jitter_endpoints_torch(ep_b, gen)
+            if noise_aug:
+                ep_b, vis_b, rev_b = fragment_endpoints_torch(
+                    ep_b, vis_b, rev_b, gen, split_prob=split_prob)
+            if s2d:
+                mirrored = ep_b.clone()
+                mirrored[..., 0::2] = CANVAS - 1 - ep_b[..., 0::2]
+                ep_b = torch.where(flips[s], mirrored, ep_b)
+                images = rasterize.render_raster_s2d(
+                    ep_b, vis_b, rev_b, dtype=raster_dtype)
+                if noise_aug and pixel_drop > 0:
+                    keep = torch.rand(images.shape, generator=gen,
+                                      device=dev) < 1.0 - pixel_drop
+                    images = images * keep.to(images.dtype)
+            else:
+                images = render_images(ep_b, vis_b, rev_b,
+                                       dtype=torch.float32)
+                images = torch.where(flips[s], images.flip(2), images)
+            losses.append(step(images, labels_d[idx], gen))
+        epoch_means.append(torch.stack(losses).mean())
+        if log:
+            log(f"epoch {epoch}: mean loss {epoch_means[-1].item():.4f}")
+    history = torch.stack(epoch_means).tolist()
+    return params_to_numpy(dict(model.named_parameters())), history
+
+
+def evaluate(params, specs, labels, batch_size: int = 64,
+             device=None) -> float:
+    """Argmax accuracy on labeled specs through the f32 inference forward
+    (K1 renders each batch, K2 follows conv1 and conv2 on the card)."""
+    dev = resolve_device(device)
+    model = AlexNet.from_params(
+        {k: torch.as_tensor(v, dtype=torch.float32) for k, v in params.items()},
+        device=dev)
+    labels = np.asarray(labels)
+    specs = np.asarray(specs)
+    n = len(labels)
+    correct = 0
+    with torch.inference_mode(), exact_f32():
+        for i in range(0, n, batch_size):
+            logits = model(specs_to_images(specs[i:i + batch_size], device=dev))
+            correct += int((logits.argmax(1).cpu().numpy()
+                            == labels[i:i + batch_size]).sum())
+    return correct / n
+
+
+def main(argv=None):
+    """CLI: train from an .npz with `specs` [N,12] and `labels` [N]
+    (class ids 0=DEL 1=INS 2=INV 3=DUP 4=tDUP, predict.py:133-142)."""
+    import argparse
+    from svision_tpu_torch.models.checkpoint import load_params, save_params
+
+    ap = argparse.ArgumentParser(description="svision-tpu CNN trainer (torch)")
+    ap.add_argument("--data", required=True, help=".npz with specs + labels")
+    ap.add_argument("-o", dest="out", required=True, help="output .npz weights")
+    ap.add_argument("--init", default=None, help="warm-start weights")
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 compute (f32 master weights, logits and loss)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ns = ap.parse_args(argv)
+
+    dev = resolve_device(ns.device)
+    with np.load(ns.data) as z:
+        specs, labels = z["specs"], z["labels"]
+    params = (load_params(ns.init) if ns.init
+              else alexnet.init_params(ns.seed))
+    params, history = fit(params, specs, labels, epochs=ns.epochs,
+                          batch_size=ns.batch_size, seed=ns.seed,
+                          learning_rate=ns.lr, log=print, device=dev,
+                          compute_dtype=torch.bfloat16 if ns.bf16
+                          else torch.float32)
+    save_params(params, ns.out)
+    print(f"saved {ns.out}; final loss {history[-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

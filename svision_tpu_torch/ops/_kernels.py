@@ -124,6 +124,19 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """Refuse inputs that autograd tracks. A kernel writes its output
+    through raw pointers, so the output has no grad_fn: on the card a
+    training graph would be cut there without a word (and an optimizer
+    would skip the parameters before it). The plain versions would keep
+    the graph on the CPU, so the check runs on every device, or the CPU
+    tests could not see what the card does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: an input requires grad, and the kernel "
+                         "is not differentiable; call it under "
+                         "torch.no_grad() or torch.inference_mode()")
+
+
 def check_cuda(*tensors) -> None:
     """All tensors on one CUDA device."""
     dev = tensors[0].device

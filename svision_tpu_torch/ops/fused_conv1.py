@@ -42,7 +42,11 @@ def conv1_fused_raster(endpoints: torch.Tensor, visible: torch.Tensor,
     """[N,SEGS,4] int32 endpoints + bool [N,SEGS] flags + folded conv1
     weights w_s2d [3,3,48,96] (bf16 or f32) -> conv1 pre-activation
     [N,55,55,96] (NHWC) in w_s2d's dtype, accumulated in f32. Add the
-    folded bias and apply ReLU outside (bias_relu_pool_lrn does)."""
+    folded bias and apply ReLU outside (bias_relu_pool_lrn does). Not
+    differentiable: weights that require grad are refused while grad
+    mode is on (_kernels.check_no_grad)."""
+    _kernels.check_no_grad("conv1_fused_raster", endpoints, visible, reverse,
+                           w_s2d)
     if endpoints.device.type == "cpu":
         return conv1_fused_raster_plain(endpoints, visible, reverse, w_s2d)
     n = _kernels.check_segments(endpoints, visible, reverse)

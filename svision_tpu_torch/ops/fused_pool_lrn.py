@@ -61,7 +61,9 @@ def bias_relu_pool_lrn(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     x [N,H,W,C] channels-last (bf16 or f32), bias [C] (bf16 or f32, read
     as stored) -> [N,Ho,Wo,C] in x's dtype. On the card x must be
     contiguous, which the NHWC permute of a channels_last NCHW tensor is,
-    and 16-byte aligned: the kernel fills its ring with bulk copies."""
+    and 16-byte aligned: the kernel fills its ring with bulk copies. Not
+    differentiable (_kernels.check_no_grad)."""
+    _kernels.check_no_grad("bias_relu_pool_lrn", x, bias)
     if x.device.type == "cpu":
         return bias_relu_pool_lrn_plain(x, bias)
     floats = (torch.float32, torch.bfloat16)

@@ -21,7 +21,8 @@ def render_raster(endpoints: torch.Tensor, visible: torch.Tensor,
                   reverse: torch.Tensor, *, dtype=torch.float32) -> torch.Tensor:
     """[N,SEGS,4] int32 clipped endpoints + bool [N,SEGS] flags -> {0,1}
     raster [N,227,227,3] (NHWC) in dtype (float32, the exact path's, or
-    bfloat16)."""
+    bfloat16). Not differentiable (_kernels.check_no_grad)."""
+    _kernels.check_no_grad("render_raster", endpoints, visible, reverse)
     if endpoints.device.type == "cpu":
         return rasterize.render_raster(endpoints, visible, reverse,
                                        dtype=dtype)

@@ -1,4 +1,5 @@
-"""Inference devices for data-parallel inference, and the score reduction.
+"""Devices for data-parallel inference and DP x TP training, and the
+score reduction.
 
 Counterpart of the JAX package's parallel/mesh.py. A "mesh" here is a tuple
 of torch.devices: the InferenceEngine keeps one model replica on each and
@@ -7,13 +8,18 @@ what the JAX engine's 'data'-axis sharding does. None means one device.
 
 On the CPU (device="cpu") a mesh of N is N replicas on the CPU, as the JAX
 package's tests run a mesh over virtual CPU devices, so the split path runs
-without a GPU. The training-only placements (replicate_params,
-shard_params_tp) are not ported yet.
+without a GPU.
+
+Training takes a grid instead, make_train_mesh: rows are the 'data' axis,
+columns the 'model' axis. replicate_params and shard_params_tp place a
+copy of the parameters on every device of it (shard_params_tp splits fc6's
+output columns and fc7's input rows over the model axis, as the JAX
+package's does), and models/train.make_mesh_train_step runs the step.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +57,89 @@ def resolve_mesh(spec: str = "auto", device: str = "cuda"
         raise ValueError(f"--mesh {spec}: only {torch.cuda.device_count()} "
                          "CUDA devices visible")
     return make_mesh(n, device)
+
+
+def make_train_mesh(data: int, model: int = 1, device: str = "cuda"
+                    ) -> Tuple[Tuple[torch.device, ...], ...]:
+    """A (data x model) grid of devices for training: the first
+    data*model GPUs, row by row; on the CPU, data*model replicas of it.
+    Raises ValueError when fewer GPUs are visible."""
+    n = data * model
+    if device != "cpu" and n > torch.cuda.device_count():
+        raise ValueError(f"a {data}x{model} mesh needs {n} GPUs, "
+                         f"{torch.cuda.device_count()} visible")
+    flat = make_mesh(n, device)
+    return tuple(flat[d * model:(d + 1) * model] for d in range(data))
+
+
+# parameters split over the model axis, and the dim of their torch layout
+# that is split: fc6's output columns ([out,in] rows), fc7's input rows
+# ([out,in] columns)
+_TP_SPLIT = {"fc6.weight": 0, "fc6.bias": 0, "fc7.weight": 1}
+
+
+def _place(params: Mapping[str, object], mesh, split: bool):
+    from svision_tpu_torch.models.alexnet import params_from_numpy
+    state = params_from_numpy({k: torch.as_tensor(v, dtype=torch.float32)
+                               for k, v in params.items()})
+    cells = []
+    for row in mesh:
+        placed = []
+        for m, dev in enumerate(row):
+            cell = {}
+            for k, t in state.items():
+                if split and k in _TP_SPLIT:
+                    t = t.chunk(len(row), _TP_SPLIT[k])[m]
+                cell[k] = t.to(dev).clone(
+                    memory_format=torch.contiguous_format).requires_grad_(True)
+            placed.append(cell)
+        cells.append(tuple(placed))
+    return tuple(cells)
+
+
+def replicate_params(params: Mapping[str, object], mesh):
+    """TF-named params -> cells[d][0], a dict of AlexNet parameter names
+    to leaf tensors (f32, requiring grad) on each device of a one-column
+    grid (data parallel): a full copy everywhere. A grid with a model axis
+    is placed by shard_params_tp."""
+    if len(mesh[0]) > 1:
+        raise ValueError("replicate_params: the grid has a model axis; "
+                         "use shard_params_tp")
+    return _place(params, mesh, split=False)
+
+
+def shard_params_tp(params: Mapping[str, object], mesh):
+    """Tensor-parallel placement: fc6 column-split and fc7 row-split over
+    the model axis (in the TF layout [in,out]); everything else a full
+    copy on every device."""
+    return _place(params, mesh, split=True)
+
+
+def holders(cells) -> List[List[torch.Tensor]]:
+    """The copies of each parameter tensor: for a replicated parameter one
+    per cell, for a model-axis shard one per data row of its column."""
+    groups: Dict[Tuple[str, Optional[int]], List[torch.Tensor]] = {}
+    for row in cells:
+        for m, cell in enumerate(row):
+            for k, t in cell.items():
+                shard = m if k in _TP_SPLIT and len(row) > 1 else None
+                groups.setdefault((k, shard), []).append(t)
+    return list(groups.values())
+
+
+def gather_params(cells) -> Dict[str, np.ndarray]:
+    """cells -> TF-named numpy params, the model-axis shards joined (from
+    data row 0)."""
+    from svision_tpu_torch.models.alexnet import params_to_numpy
+    row = cells[0]
+    state = {}
+    for k in row[0]:
+        if k in _TP_SPLIT and len(row) > 1:
+            state[k] = torch.cat([c[k].detach().cpu() for c in row],
+                                 _TP_SPLIT[k])
+        else:
+            state[k] = row[0][k]
+    return params_to_numpy(state)
 
 
 def ShardedInference(params, mesh: Sequence[torch.device],

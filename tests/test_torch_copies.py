@@ -17,7 +17,8 @@ COPIED_DIRS = ["io", "io/native", "collect", "call"]
 COPIED_FILES = ["config.py", "noise.py", "sim.py", "models/checkpoint.py",
                 "ops/__init__.py", "ops/bresenham.py", "ops/dotplot.py",
                 "utils/__init__.py", "utils/metrics.py", "utils/hostpool.py",
-                "infer/__init__.py", "parallel/__init__.py"]
+                "infer/__init__.py", "parallel/__init__.py",
+                "models/dataset.py", "evaluate.py"]
 
 
 def _sources(pkg, d):

@@ -160,3 +160,34 @@ def test_wrappers_reject_bad_inputs(cuda):
         fused_pool_lrn.bias_relu_pool_lrn(flat[1:].view(x.shape), b)
     with pytest.raises(ValueError):
         fused_pool_lrn.bias_relu_pool_lrn(x, b[:95])
+
+
+@pytest.mark.parametrize("s2d", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
+    """One training step on the card leaves a finite, non-zero gradient on
+    every one of the 16 parameters: no kernel cut the graph (the image
+    path's batch comes from K1, outside it), so the optimizer skipped
+    nothing."""
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet
+    model = AlexNet.trainable(init_params(0), device=cuda)
+    _, step = train.make_train_step(model, clip_norm=1.0, keep_prob=0.5,
+                                    compute_dtype=dtype, s2d=s2d)
+    seg = _batch(cuda, 16)
+    if s2d:
+        x = rasterize.render_raster_s2d(*seg, dtype=dtype)
+    else:
+        before = raster_kernel.render_raster.launches
+        x = raster_kernel.render_images(*seg)
+        assert raster_kernel.render_raster.launches == before + 1
+    labels = torch.arange(16, device=cuda) % 5
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    loss = step(x, labels, torch.Generator(device=cuda).manual_seed(0))
+    assert torch.isfinite(loss)
+    named = dict(model.named_parameters())
+    assert len(named) == 16
+    for k, v in named.items():
+        assert v.grad is not None, f"{k}: no gradient"
+        assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0, k
+        assert not torch.equal(v.detach(), start[k]), f"{k}: not updated"

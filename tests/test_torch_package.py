@@ -26,7 +26,8 @@ def test_imports_with_jax_absent():
             "svision_tpu_torch.ops.fused_pool_lrn, "
             "svision_tpu_torch.ops.fused_conv1, svision_tpu_torch.serve, "
             "svision_tpu_torch.parallel.mesh, svision_tpu_torch.parallel.dist, "
-            "svision_tpu_torch.parallel.cohort; "
+            "svision_tpu_torch.parallel.cohort, svision_tpu_torch.models.train, "
+            "svision_tpu_torch.models.dataset, svision_tpu_torch.evaluate; "
             "assert not any(m == 'svision_tpu' or m.startswith('svision_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -102,3 +103,31 @@ def test_init_params_seeded():
     assert all(np.array_equal(a[k], b[k]) for k in a)
     assert a["conv1/weights"].shape == (11, 11, 3, 96)
     assert a["fc6/weights"].shape == (9216, 4096)
+
+
+def test_wrappers_refuse_inputs_that_require_grad():
+    """A kernel writes through raw pointers and cuts the autograd graph,
+    silently on the card, so every wrapper refuses an input that requires
+    grad while grad mode is on, on the CPU too; under no_grad or
+    inference_mode (the engine's) it runs."""
+    from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
+    from svision_tpu_torch.ops.fused_pool_lrn import bias_relu_pool_lrn
+    from svision_tpu_torch.ops.raster_kernel import render_images, render_raster
+    ep = torch.zeros((1, 2, 4), dtype=torch.int32)
+    flags = torch.zeros((1, 2), dtype=torch.bool)
+    x = torch.ones((1, 5, 5, 8), requires_grad=True)
+    w = torch.zeros((3, 3, 48, 96), requires_grad=True)
+    ep_f = ep.float().requires_grad_(True)
+    calls = [lambda: bias_relu_pool_lrn(x, torch.zeros(8)),
+             lambda: bias_relu_pool_lrn(torch.ones((1, 5, 5, 8)),
+                                        torch.zeros(8, requires_grad=True)),
+             lambda: conv1_fused_raster(ep, flags, flags, w),
+             lambda: render_raster(ep_f, flags, flags),
+             lambda: render_images(ep_f, flags, flags)]
+    for call in calls:
+        with pytest.raises(ValueError, match="requires grad"):
+            call()
+    with torch.no_grad():
+        assert bias_relu_pool_lrn(x, torch.zeros(8)).shape == (1, 2, 2, 8)
+    with torch.inference_mode():
+        assert conv1_fused_raster(ep, flags, flags, w).shape == (1, 55, 55, 96)
