@@ -11,11 +11,15 @@ Phases, each of which fails the run with a non-zero exit on any check:
      bf16 K3 runs on tensor cores (HGMMA in its SASS), and build the native
      BAM decoder the CLI reads with;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     engine's batch of 128 and in both dtypes, and time both; K3 bf16 also
-     at batches of 1, 129 and 8,192 and on an all-dark batch;
-  3. run the InferenceEngine on 8,192 specs in both numeric modes against
-     an engine whose kernels are swapped for their plain versions, then
-     profile one call in each mode (device time by kernel, idle share);
+     engine's batch of 128 and in both dtypes, and time both; K1 also on
+     fit_device's fragmented four segments an image; K3 bf16 also at
+     batches of 1, 129 and 8,192 and on an all-dark batch;
+  3. run the InferenceEngine in both numeric modes: its CUDA graphs bit for
+     bit against its eager step at 1, 128, 129, 17 x 128 + 5, chunk + 20
+     batches and 8,192 specs, images/s graphed and eager, and 8,192 specs
+     against an all-plain engine built and captured with its kernels
+     swapped for their plain versions; then profile one call in each mode,
+     graphed and eager (device time by kernel, idle share);
   4. drive the CLI path (svision_tpu_torch.cli.run_pipeline) on a
      synthetic genome + BAM with seeded random weights, in the default bf16
      mode and with --exact, counting kernel launches in each run, and hold
@@ -31,12 +35,17 @@ Phases, each of which fails the run with a non-zero exit on any check:
      two-sample cohort in 2 shard processes, each VCF byte-equal to its
      1-shard run (and --mesh 2 where two GPUs are visible);
   7. train (svision_tpu_torch.models.train): one f32 step on the card
-     against the same step on the CPU; eight bf16 steps with a falling
-     loss; training images/s of fit and fit_device; a profiled bf16 s2d
-     step; the DP x TP step where two GPUs are visible; and a mini closed
-     loop (build_dataset, fit_device, evaluate) whose weights go through
-     phase 4's CLI. Every training run's launches are held to launches
-     per step x steps.
+     against the same step on the CPU; a graphed step against the eager
+     step from the same state (fit's and fit_device's), and replays that
+     draw new dropout masks; eight bf16 steps with a falling loss; training
+     images/s of fit and fit_device (graphed), the image path with
+     fragmented segments too; the bf16 s2d fit_device step profiled,
+     graphed and eager; the DP x TP step where two GPUs are visible; and a
+     mini closed loop (build_dataset, fit_device, evaluate) whose weights
+     go through phase 4's CLI.
+Launches count kernels executed: a graph replay adds the launches its
+capture held (svision_tpu_torch/graphs.py), and every run of phases 3-7
+holds them to launches per batch or step x the batches or steps run.
 Then it prints one {"kernels": [...]} line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 `--report PATH` also writes the full report (every variant, the profile) as
@@ -261,7 +270,8 @@ def hgmma_count(lib: str) -> int:
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel of the engine's path for its plain PyTorch version
-    (they then run on the card as torch ops)."""
+    (they then run on the card as torch ops). A CUDA graph captured before
+    the swap still holds the kernels: build and capture an engine inside."""
     from svision_tpu_torch.infer import engine
     from svision_tpu_torch.models import alexnet
     from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, rasterize
@@ -305,6 +315,7 @@ def check_kernels(params, dense_k3) -> dict:
     import torch
     import torch.nn.functional as F
     from svision_tpu_torch.infer.engine import exact_f32
+    from svision_tpu_torch.models import train
     from svision_tpu_torch.models.alexnet import fold_conv1_params
     from svision_tpu_torch.ops import fused_conv1, rasterize
     from svision_tpu_torch.ops import raster_kernel
@@ -317,22 +328,29 @@ def check_kernels(params, dense_k3) -> dict:
     seg_bytes = nbytes(ep, vis, rev)
     out = {}
 
-    # K1: bit-exact in both dtypes
+    # K1: bit-exact in both dtypes, on the candidates' two segments and on
+    # fit_device's fragmented four (train.fragment_endpoints_torch)
+    frag = train.fragment_endpoints_torch(
+        ep, vis, rev, torch.Generator(device=dev).manual_seed(1),
+        split_prob=0.5)
     variants = []
-    for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        got = raster_kernel.render_raster(ep, vis, rev, dtype=dt)
-        want = rasterize.render_raster(ep, vis, rev, dtype=dt)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        assert torch.equal(got, want), f"K1 {kind}: raster differs ({err})"
-        b, by = bound_ms(seg_bytes + nbytes(got), 0, kind)
-        variants.append(dict(
-            dtype=kind, shape=list(got.shape), max_abs_err=err,
-            ms=time_ms(lambda: raster_kernel.render_raster(ep, vis, rev, dtype=dt)),
-            plain_ms=time_ms(lambda: rasterize.render_raster(ep, vis, rev, dtype=dt),
-                             reps=PLAIN_REPS),
-            bound_ms=b, bound_by=by))
-        log(f"K1 render_raster {kind}: bit-exact, {variants[-1]}")
+    for seg in ((ep, vis, rev), frag):
+        for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            got = raster_kernel.render_raster(*seg, dtype=dt)
+            want = rasterize.render_raster(*seg, dtype=dt)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            segs = seg[0].shape[1]
+            assert torch.equal(got, want), \
+                f"K1 {kind} S={segs}: raster differs ({err})"
+            b, by = bound_ms(nbytes(*seg, got), 0, kind)
+            variants.append(dict(
+                dtype=kind, segs=segs, shape=list(got.shape), max_abs_err=err,
+                ms=time_ms(lambda: raster_kernel.render_raster(*seg, dtype=dt)),
+                plain_ms=time_ms(lambda: rasterize.render_raster(*seg, dtype=dt),
+                                 reps=PLAIN_REPS),
+                bound_ms=b, bound_by=by))
+            log(f"K1 render_raster {kind} S={segs}: bit-exact, {variants[-1]}")
     out["render_raster"] = variants
 
     out["bias_relu_pool_lrn"] = check_pool_lrn()
@@ -497,7 +515,26 @@ def k3_bf16_checks(dense_k3, seg, w, lit, got) -> dict:
 # phase 3: the engine against an all-plain engine
 # ---------------------------------------------------------------------------
 
+def eager_rate(eng, specs, calls: int = 3) -> float:
+    """best_rate of the engine's eager step on the card, the reference its
+    graphs are held to."""
+    import types
+    import torch
+
+    def predict(x):
+        with torch.inference_mode():
+            return eng._predict(x, graphed=False)
+    return best_rate(types.SimpleNamespace(predict_specs=predict), specs,
+                     calls)
+
+
 def check_engine(params) -> dict:
+    """Phase 3, in both modes: the warm-up's captures (time, memory), K2's
+    inputs on the engine's path, graph replays bit-equal to the eager step
+    at n = 1, 128, 129, a short tail (17 x 128 + 5), a long one (chunk +
+    20 batches) and 8,192, images/s graphed and eager, and the engine
+    against an all-plain engine, which is built and captured inside
+    plain_kernels() so its graphs hold the plain versions."""
     import torch
     from svision_tpu_torch.infer.engine import InferenceEngine
 
@@ -507,7 +544,16 @@ def check_engine(params) -> dict:
     out = {}
     for mode, bf16 in (("bf16", True), ("exact", False)):
         eng = InferenceEngine(params, batch_size=B, bf16=bf16)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
         eng.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        # the graphs' private pools stay reserved through empty_cache
+        torch.cuda.empty_cache()
+        graph_bytes = torch.cuda.memory_reserved() - reserved
         # K2 copies nothing: both of its inputs on the engine's path (conv1's
         # and conv2's outputs, NHWC) must already be contiguous
         k2, seen = alexnet.bias_relu_pool_lrn, []
@@ -517,18 +563,37 @@ def check_engine(params) -> dict:
             return k2(x, b)
         alexnet.bias_relu_pool_lrn = recording
         try:
-            eng.predict_specs(specs[:B])
+            with torch.inference_mode():
+                eng._predict(specs[:B], graphed=False)
         finally:
             alexnet.bias_relu_pool_lrn = k2
         assert len(seen) == 2 and all(c for _, c in seen), \
             f"{mode} engine: K2 inputs (shape, contiguous) {seen}"
+        sizes = (1, B, B + 1, 17 * B + 5, (eng.chunk + 20) * B, 8192)
+        with counted() as run:
+            for n in sizes:
+                x = random_specs(n, seed=n)
+                gp, gs = eng.predict_specs(x)
+                with torch.inference_mode():
+                    ep, es = eng._predict(x, graphed=False)
+                assert np.array_equal(gp, ep) and np.array_equal(gs, es), \
+                    f"{mode} engine: graphs differ from the eager step at n={n}"
+        hold_launches(f"engine {mode}", "default" if bf16 else "exact", run,
+                      warmups=0)
         p, s = eng.predict_specs(specs)
         best = best_rate(eng, specs)
+        eager = eager_rate(eng, specs)
+        plan = dict(chunk=eng.chunk, tail=eng.tail)
+        del eng
+        torch.cuda.empty_cache()
         with plain_kernels():
-            pp, ps = eng.predict_specs(specs)
+            plain = InferenceEngine(params, batch_size=B, bf16=bf16)
+            plain.warmup()
+            pp, ps = plain.predict_specs(specs)
             t0 = time.perf_counter()
-            eng.predict_specs(specs)
+            plain.predict_specs(specs)
             plain_rate = specs.shape[0] / (time.perf_counter() - t0)
+            del plain
         agree = float((p == pp).mean())
         soft_err = float(np.abs(s - ps).max())
         if bf16:
@@ -537,28 +602,34 @@ def check_engine(params) -> dict:
             assert agree == 1.0, f"exact engine: argmax agreement {agree}"
             assert soft_err <= 1e-4, f"exact engine: softmax err {soft_err}"
         assert np.isfinite(s).all() and ((s > 0) & (s <= 1)).all()
-        out[mode] = dict(images_per_s=best, plain_images_per_s=plain_rate,
+        out[mode] = dict(images_per_s=best, eager_images_per_s=eager,
+                         plain_images_per_s=plain_rate,
+                         **plan, warmup_s=warmup_s,
+                         graph_reserved_bytes=graph_bytes,
+                         graphs_equal_eager_at=list(sizes),
+                         launches=run["launches"], batches=run["batches"],
                          k2_inputs_contiguous=seen,
                          argmax_agreement=agree, max_softmax_err=soft_err,
                          n=int(specs.shape[0]), batch=B)
         log(f"engine {mode} ({REPORT['device']['nvidia_smi']}): {out[mode]}")
-        del eng
         torch.cuda.empty_cache()
     return out
+
+
+def on_device(e) -> bool:
+    """A profiler event that is a kernel or copy on the device. A user
+    annotation's span on the device track (Optimizer.step#SGD.step) is
+    none."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key)
 
 
 def device_time(prof, wall_ms: float, what: str):
     """({kernel: device ms}, device busy ms) of a torch.profiler run: busy
     is the union of the traced kernels' and copies' intervals (copies
-    overlap kernels, so the sum of their times may exceed the wall). A
-    user annotation's span on the device track (Optimizer.step#SGD.step)
-    is no kernel and is left out of both."""
-    from torch.autograd import DeviceType
-
-    def on_device(e):
-        return (e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and "#" not in e.key)
+    overlap kernels, so the sum of their times may exceed the wall)."""
     per_kernel = {}
     for e in prof.key_averages():
         if not on_device(e):
@@ -583,10 +654,12 @@ def device_time(prof, wall_ms: float, what: str):
 
 def profile_engine(params, n: int = 2048) -> dict:
     """Device time per batch by kernel, and the device's idle share, for
-    one predict_specs call of n specs in each mode (torch.profiler; the
-    profiler's own overhead widens the idle share). The device is busy for
-    the union of its kernels' and copies' intervals: copies overlap
-    kernels, so the sum of their times may exceed the wall time."""
+    one call of n specs in each mode, through the graphs (predict_specs;
+    CUPTI traces the kernels inside a replay) and through the eager step
+    (torch.profiler; the profiler's own overhead widens the idle share).
+    The device is busy for the union of its kernels' and copies' intervals:
+    copies overlap kernels, so the sum of their times may exceed the wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from svision_tpu_torch.infer.engine import InferenceEngine
@@ -596,24 +669,30 @@ def profile_engine(params, n: int = 2048) -> dict:
     for mode, bf16 in (("bf16", True), ("exact", False)):
         eng = InferenceEngine(params, batch_size=B, bf16=bf16)
         eng.warmup()
-        eng.predict_specs(specs)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.predict_specs(specs)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        per_kernel, busy_ms = device_time(prof, wall_ms, f"profile {mode}")
-        batches = n // B
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:16]
-        out[mode] = dict(
-            wall_ms_per_batch=wall_ms / batches,
-            device_ms_per_batch=busy_ms / batches,
-            device_time_sum_ms_per_batch=sum(per_kernel.values()) / batches,
-            idle_share=1.0 - busy_ms / wall_ms,
-            top_kernels_ms_per_batch={k[:120]: v / batches for k, v in top})
-        log(f"profile {mode}: {wall_ms / batches:.3f} ms/batch wall, "
-            f"{busy_ms / batches:.3f} ms/batch on the device, idle share "
-            f"{out[mode]['idle_share']:.3f}")
+        for how, graphed in (("", True), ("_eager", False)):
+            def call():
+                with torch.inference_mode():
+                    eng._predict(specs, graphed=graphed)
+            call()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                call()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            per_kernel, busy_ms = device_time(prof, wall_ms,
+                                              f"profile {mode}{how}")
+            batches = n // B
+            top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:16]
+            out[mode + how] = dict(
+                wall_ms_per_batch=wall_ms / batches,
+                device_ms_per_batch=busy_ms / batches,
+                device_time_sum_ms_per_batch=sum(per_kernel.values()) / batches,
+                idle_share=1.0 - busy_ms / wall_ms,
+                top_kernels_ms_per_batch={k[:120]: v / batches
+                                          for k, v in top})
+            log(f"profile {mode}{how}: {wall_ms / batches:.3f} ms/batch wall, "
+                f"{busy_ms / batches:.3f} ms/batch on the device, idle share "
+                f"{out[mode + how]['idle_share']:.3f}")
         del eng
         torch.cuda.empty_cache()
     return out
@@ -646,28 +725,39 @@ PER_BATCH = {
 
 
 def kernel_wrappers() -> dict:
-    from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
-    return {"render_raster": raster_kernel.render_raster,
-            "bias_relu_pool_lrn": fused_pool_lrn.bias_relu_pool_lrn,
-            "conv1_fused_raster": fused_conv1.conv1_fused_raster}
+    from svision_tpu_torch import graphs
+    return {w.__name__: w for w in graphs.kernel_wrappers()}
+
+
+def warmup_batches(cpu: bool = False) -> int:
+    """The batches an engine's warmup() runs with the default plan: one
+    eager sentinel batch, and on the card one replay of the single-batch
+    graph and, under tail 'full', one of the full-chunk graph."""
+    from svision_tpu_torch.infer import engine
+    if cpu:
+        return 1
+    return 2 + (engine.CHUNK if engine.TAIL == "full" and engine.CHUNK > 1
+                else 0)
 
 
 @contextlib.contextmanager
 def counted():
     """Count the block's kernel launches, every count set to 0 on entry,
-    and the batches the engine ran, those of a warm-up apart from the real
-    ones. Yields a dict that holds "batches" and gets "launches" and
-    "wall_s" (host clock) on exit."""
+    and the batches the engine ran (each call's plan, graph replays and
+    eager steps alike), those of a warm-up apart from the real ones.
+    Yields a dict that holds "batches" and gets "launches" and "wall_s"
+    (host clock) on exit."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     wrappers = kernel_wrappers()
     out = {"batches": {"warmup": 0, "real": 0}}
     warming = threading.local()
-    predict, warmup = InferenceEngine.predict_specs, InferenceEngine.warmup
+    predict, warmup = InferenceEngine._predict, InferenceEngine.warmup
 
-    def counting_predict(self, specs):
+    def counting_predict(self, specs, graphed):
         kind = "warmup" if getattr(warming, "on", False) else "real"
-        out["batches"][kind] += -(-len(specs) // self.batch_size)
-        return predict(self, specs)
+        chunks, singles = self.plan(len(specs))
+        out["batches"][kind] += sum(chunks) + singles
+        return predict(self, specs, graphed)
 
     def flagged_warmup(self):
         warming.on = True
@@ -676,7 +766,7 @@ def counted():
         finally:
             warming.on = False
 
-    InferenceEngine.predict_specs = counting_predict
+    InferenceEngine._predict = counting_predict
     InferenceEngine.warmup = flagged_warmup
     for w in wrappers.values():
         w.launches = 0
@@ -686,7 +776,7 @@ def counted():
         out["wall_s"] = time.perf_counter() - t0
         out["launches"] = {k: w.launches for k, w in wrappers.items()}
     finally:
-        InferenceEngine.predict_specs = predict
+        InferenceEngine._predict = predict
         InferenceEngine.warmup = warmup
 
 
@@ -746,7 +836,8 @@ def check_cli(fx: dict, work: str) -> dict:
         recs = _records(vcf)
         assert recs, f"{name}: VCF has no records"
         cpu = "cpu" in extra
-        hold_launches(name, "cpu" if cpu else mode, r, warmups=1,
+        hold_launches(name, "cpu" if cpu else mode, r,
+                      warmups=warmup_batches(cpu),
                       devices=1 if cpu else mesh_devices())
         log(f"cli {name}: {len(recs)} records, {r['wall_s']:.3f} s, batches "
             f"{r['batches']}, launches {r['launches']}")
@@ -853,7 +944,8 @@ def check_serve(fx: dict, work: str, cold_wall_s: float) -> dict:
             solo[s] = cli.run_pipeline(cli.parse_arguments(
                 ["-o", os.path.join(work, f"solo_{s}"), "-b", bam,
                  "-n", f"S{s}", *base]))
-        hold_launches(f"cli {s}", "default", r, warmups=1, devices=nd)
+        hold_launches(f"cli {s}", "default", r, warmups=warmup_batches(),
+                      devices=nd)
         assert _records(solo[s]), f"standalone {s}: VCF has no records"
         out["runs"][f"cli_{s}"] = r
         log(f"cli on the two-chromosome genome, sample {s}: "
@@ -1009,7 +1101,8 @@ def check_shards(fx: dict, work: str, solo: dict) -> dict:
                 ["-o", shard_dir, *base, "--num_shards", "2",
                  "--shard_id", str(k)]))
         assert frag == os.path.join(shard_dir, "predict_results"), frag
-        hold_launches(f"shard {k}", "default", r, warmups=1, devices=nd)
+        hold_launches(f"shard {k}", "default", r, warmups=warmup_batches(),
+                      devices=nd)
         out["runs"][f"shard{k}"] = r
     with counted() as r:
         merged = cli.run_pipeline(cli.parse_arguments(
@@ -1044,7 +1137,8 @@ def check_shards(fx: dict, work: str, solo: dict) -> dict:
         cohort1 = cohort.run_cohort(samples, cli.RunOptions(
             out_path=one, genome=fx["genome2"], model_path=fx["weights"],
             min_support=3).normalized())
-    hold_launches("cohort 1 shard", "default", r, warmups=1, devices=nd)
+    hold_launches("cohort 1 shard", "default", r, warmups=warmup_batches(),
+                  devices=nd)
     out["runs"]["cohort_1shard"] = r
     assert _records(cohort1), "cohort VCF has no records"
     two = os.path.join(work, "cohort2")
@@ -1064,7 +1158,8 @@ def check_shards(fx: dict, work: str, solo: dict) -> dict:
         with counted() as r:
             vcf = cli.run_pipeline(cli.parse_arguments(
                 ["-o", os.path.join(work, "mesh2"), *base, "--mesh", "2"]))
-        hold_launches("--mesh 2", "default", r, warmups=1, devices=2)
+        hold_launches("--mesh 2", "default", r, warmups=warmup_batches(),
+                      devices=2)
         same_bytes(vcf, solo["B"], "--mesh 2")
         out["runs"]["mesh2"] = r
         log(f"--mesh 2: VCF equal, launches {r['launches']}")
@@ -1088,6 +1183,8 @@ PER_STEP = {
             "conv1_fused_raster": 0},
     "fit_device_image": {"render_raster": 1, "bias_relu_pool_lrn": 0,
                          "conv1_fused_raster": 0},
+    "fit_device_image_noise": {"render_raster": 1, "bias_relu_pool_lrn": 0,
+                               "conv1_fused_raster": 0},
     "fit_device_s2d": {"render_raster": 0, "bias_relu_pool_lrn": 0,
                        "conv1_fused_raster": 0},
     "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
@@ -1167,6 +1264,105 @@ def check_train_step(params) -> dict:
     return out
 
 
+def eager_twin(model, opt, make):
+    """A second trainer in model's state: the same parameters and momentum
+    buffers; make(twin) -> (optimizer, step) builds its eager step."""
+    import copy
+    twin = copy.deepcopy(model)
+    twin_opt, step = make(twin)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        twin_opt.state[q]["momentum_buffer"] = \
+            opt.state[p]["momentum_buffer"].clone()
+    return twin, step
+
+
+def check_graph_steps(params) -> dict:
+    """One graphed training step against the eager step from the same
+    weights, momentum and batch, at keep_prob 1 without augmentation:
+    make_train_step (f32, the image path: fit's step) and make_device_step
+    (bf16 s2d: fit_device's whole step). Each trainer first takes its
+    graphs.WARMUP_STEPS eager steps; then two eager twins of its state
+    (eager_twin) and the trainer's first replay take the same step. The
+    loss within 1e-6 relative and every parameter within 1e-6 of its
+    largest entry; the report says what differed, beside what the two
+    eager twins differ by (max-pool's backward on the card adds with
+    atomics, so eager steps are not bit-reproducible). Then replays at
+    keep_prob 0.5 on one batch with a zero learning rate draw new dropout
+    masks: every loss differs."""
+    import torch
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet, params_to_numpy
+    from svision_tpu_torch.ops import rasterize
+    dev = torch.device(GPU)
+    steps = graphs.WARMUP_STEPS + 1
+    specs, labels = labeled(32 * steps, seed=13)
+    y = torch.from_numpy(labels).long().to(dev)
+    seg = [torch.from_numpy(a).to(dev)
+           for a in rasterize.specs_to_endpoints(specs)]
+    images = train.specs_to_images(specs, device=dev)
+    flip = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def image_trainer(model, eager=False):
+        opt, step = train.make_train_step(model, learning_rate=5e-3,
+                                          clip_norm=1.0, keep_prob=1.0,
+                                          eager=eager)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return opt, lambda i: step(images[32 * i:32 * (i + 1)],
+                                   y[32 * i:32 * (i + 1)], gen)
+
+    def device_trainer(model, eager=False):
+        opt, step = train.make_device_step(
+            model, *seg, y, torch.Generator(device=dev).manual_seed(0),
+            batch_size=32, keep_prob=1.0, compute_dtype=torch.bfloat16,
+            augment=False, s2d=True, eager=eager)
+        return opt, lambda i: step(
+            torch.arange(32 * i, 32 * (i + 1), device=dev), flip)
+
+    out = {}
+    for name, make in (("make_train_step_f32_image", image_trainer),
+                       ("make_device_step_bf16_s2d", device_trainer)):
+        model = AlexNet.trainable(params, device=dev)
+        opt, step = make(model)
+        for i in range(graphs.WARMUP_STEPS):
+            step(i)
+        twins = [eager_twin(model, opt, lambda m: make(m, eager=True))
+                 for _ in range(2)]
+        last = steps - 1
+        lg = float(step(last))
+        le = [float(tstep(last)) for _, tstep in twins]
+        pg = params_to_numpy(dict(model.named_parameters()))
+        pe = [params_to_numpy(dict(t.named_parameters())) for t, _ in twins]
+
+        def rel(a, b):
+            return {k: float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+                    for k in b}
+        err, twin_err = rel(pg, pe[0]), rel(pe[1], pe[0])
+        out[name] = dict(graphed_loss=lg, eager_losses=le,
+                         loss_rel_err=abs(lg - le[0]) / abs(le[0]),
+                         bit_equal=lg == le[0] and all(
+                             np.array_equal(pg[k], pe[0][k]) for k in pg),
+                         param_rel_err=err, eager_twins_param_rel_err=twin_err)
+        assert out[name]["loss_rel_err"] <= 1e-6, f"{name}: {lg} vs {le}"
+        assert max(err.values()) <= 1e-6, f"{name}: parameters {err}"
+        log(f"graphed step {name}: loss {lg} (eager {le}), bit-equal "
+            f"{out[name]['bit_equal']}, worst parameter rel err "
+            f"{max(err.values()):.3g} (eager vs eager "
+            f"{max(twin_err.values()):.3g})")
+        del model, opt, step, twins
+
+    model = AlexNet.trainable(params, device=dev)
+    _, step = train.make_train_step(model, learning_rate=0.0, keep_prob=0.5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses = [float(step(images[:32], y[:32], gen))
+              for _ in range(graphs.WARMUP_STEPS + 3)]
+    assert len(set(losses)) == len(losses), \
+        f"dropout masks repeat across replays: {losses}"
+    out["dropout_losses_lr0"] = losses
+    log(f"graphed step, keep_prob 0.5, lr 0, one batch: losses {losses}")
+    return out
+
+
 def check_bf16_loss(params) -> dict:
     """Eight bf16 s2d steps on one repeated batch: a falling loss."""
     import torch
@@ -1205,7 +1401,9 @@ def train_rates(params) -> dict:
                ("fit_device_s2d_bf16", "fit_device_s2d", fit_device,
                 torch.bfloat16, {"s2d": True}),
                ("fit_device_image_f32", "fit_device_image", fit_device,
-                torch.float32, {"s2d": False})]
+                torch.float32, {"s2d": False}),
+               ("fit_device_image_noise_f32", "fit_device_image_noise",
+                fit_device, torch.float32, {"s2d": False, "noise_aug": True})]
     out = {}
     for name, kind, fn, dtype, kw in configs:
         stamps = []
@@ -1225,15 +1423,20 @@ def train_rates(params) -> dict:
 
 
 def profile_train_step(params) -> dict:
-    """One bf16 s2d fit_device step (the s2d raster of a batch of 64 plus
-    the train step) under torch.profiler: device time by kernel and the
-    idle share. Then the step's host-clock time back to back (host_clock_ms),
-    and CUDA-event times, the queue held, of two of its parts: the plain
-    s2d raster, and the differentiable bias/ReLU/pool/LRN ops (forward
-    and backward) at the conv1 and conv2 tails; each part's share is of
-    the step's device-busy time."""
+    """fit_device's bf16 s2d step at batch 64 (make_device_step: gather,
+    jitter, flip, the plain s2d raster and the train step, dropout on), as
+    the graph and as the eager step: each profiled for one step
+    (torch.profiler: device time by kernel, the idle share, the device
+    operations executed, the span from the first to the last) and timed
+    back to back by host clock (host_clock_ms) and, the graph, by CUDA
+    events with the queue held (time_ms: the device's time a step, gaps
+    between its operations included). Then CUDA-event times, the queue held, of two of its
+    parts: the plain s2d raster, and the differentiable bias/ReLU/pool/LRN
+    ops (forward and backward) at the conv1 and conv2 tails; each part's
+    share is of the graphed step's device-busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from svision_tpu_torch import graphs
     from svision_tpu_torch.models import train
     from svision_tpu_torch.models.alexnet import AlexNet
     from svision_tpu_torch.ops import rasterize
@@ -1243,38 +1446,60 @@ def profile_train_step(params) -> dict:
     seg = [torch.from_numpy(a).to(dev)
            for a in rasterize.specs_to_endpoints(specs)]
     y = torch.from_numpy(labels).to(dev)
-    model = AlexNet.trainable(params, device=dev)
-    _, step = train.make_train_step(model, learning_rate=5e-3, clip_norm=1.0,
-                                    compute_dtype=bf, s2d=True)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.arange(TRAIN_B, device=dev)
+    flip = torch.zeros((), dtype=torch.bool, device=dev)
+    out = {"batch": TRAIN_B}
+    for how, eager in (("graphed", False), ("eager", True)):
+        model = AlexNet.trainable(params, device=dev)
+        _, step = train.make_device_step(
+            model, *seg, y, torch.Generator(device=dev).manual_seed(0),
+            batch_size=TRAIN_B, compute_dtype=bf, eager=eager)
 
-    def one():
-        return step(rasterize.render_raster_s2d(*seg, dtype=bf), y, gen)
-    for _ in range(3):
-        one()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one()
+        def one():
+            return step(idx, flip)
+        for _ in range(graphs.WARMUP_STEPS + 2):
+            one()
         torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    per_kernel, busy_ms = device_time(prof, prof_ms, "profile train step")
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:24]
-    out = dict(batch=TRAIN_B, wall_ms=prof_ms, device_ms=busy_ms,
-               device_time_sum_ms=sum(per_kernel.values()),
-               idle_share=1.0 - busy_ms / prof_ms,
-               launches_traced=sum(e.count for e in prof.key_averages()
-                                   if e.key in ("cudaLaunchKernel",
-                                                "cuLaunchKernel",
-                                                "cudaLaunchKernelExC")),
-               top_kernels_ms={k[:120]: v for k, v in top})
-
-    x = rasterize.render_raster_s2d(*seg, dtype=bf)
-    step_ms = host_clock_ms(one)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        per_kernel, busy_ms = device_time(prof, prof_ms,
+                                          f"profile train step {how}")
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:24]
+        ops = [e for e in prof.events() if on_device(e)]
+        out[how] = dict(
+            wall_ms=prof_ms, device_ms=busy_ms,
+            device_time_sum_ms=sum(per_kernel.values()),
+            idle_share=1.0 - busy_ms / prof_ms,
+            device_ops_executed=len(ops),
+            host_launch_calls=sum(e.count for e in prof.key_averages()
+                                  if e.key in ("cudaLaunchKernel",
+                                               "cuLaunchKernel",
+                                               "cudaLaunchKernelExC",
+                                               "cudaGraphLaunch")),
+            device_span_ms=(max(e.time_range.end for e in ops)
+                            - min(e.time_range.start for e in ops)) / 1e3,
+            step_wall_ms=host_clock_ms(one),
+            # the eager step's 400-odd launches take the host longer than
+            # its device time, so the queue cannot be held for it
+            step_event_ms=None if eager else time_ms(one, reps=10),
+            top_kernels_ms={k[:120]: v for k, v in top})
+        log(f"profile train step bf16 s2d B={TRAIN_B} {how} "
+            f"({REPORT['device']['nvidia_smi']}): {prof_ms:.3f} ms wall "
+            f"profiled, {busy_ms:.3f} ms on the device, idle share "
+            f"{out[how]['idle_share']:.3f}, "
+            f"{out[how]['device_ops_executed']} device operations, "
+            f"{out[how]['host_launch_calls']} launch calls, first to last "
+            f"{out[how]['device_span_ms']:.3f} ms; unprofiled step "
+            f"{out[how]['step_wall_ms']:.3f} ms wall, "
+            f"{out[how]['step_event_ms']} ms between events, the queue held")
+        del model, step
+    busy_ms = out["graphed"]["device_ms"]
     raster_ms = time_ms(lambda: rasterize.render_raster_s2d(*seg, dtype=bf),
                         reps=PLAIN_REPS)
-    train_only_ms = host_clock_ms(lambda: step(x, y, gen))
     tails = {}
     tgen = torch.Generator(device=dev).manual_seed(3)
     for tail, c, hw in (("conv1", 96, 55), ("conv2", 256, 27)):
@@ -1288,17 +1513,12 @@ def profile_train_step(params) -> dict:
         def fwd_bwd(h=h, b=b, g=g):
             train.bias_relu_pool_lrn_autograd(h, b).backward(g)
         tails[tail] = time_ms(fwd_bwd, reps=5)
-    out.update(step_wall_ms=step_ms, train_step_wall_ms=train_only_ms,
-               s2d_raster_ms=raster_ms, s2d_raster_share=raster_ms / busy_ms,
+    out.update(s2d_raster_ms=raster_ms, s2d_raster_share=raster_ms / busy_ms,
                bias_relu_pool_lrn_fwd_bwd_ms=tails,
                bias_relu_pool_lrn_share=sum(tails.values()) / busy_ms)
-    log(f"profile train step bf16 s2d B={TRAIN_B} "
-        f"({REPORT['device']['nvidia_smi']}): {prof_ms:.3f} ms wall "
-        f"profiled, {busy_ms:.3f} ms on the device, idle share "
-        f"{out['idle_share']:.3f}; unprofiled step {step_ms:.3f} ms wall "
-        f"(train step alone {train_only_ms:.3f}); held: plain s2d raster "
-        f"{raster_ms:.3f} ms ({out['s2d_raster_share']:.1%} of device "
-        f"busy), bias/ReLU/pool/LRN fwd+bwd {tails} "
+    log(f"held: plain s2d raster {raster_ms:.3f} ms "
+        f"({out['s2d_raster_share']:.1%} of the graphed step's device busy),"
+        f" bias/ReLU/pool/LRN fwd+bwd {tails} "
         f"({out['bias_relu_pool_lrn_share']:.1%})")
     return out
 
@@ -1386,7 +1606,7 @@ def check_trained_cli(fx: dict, work: str) -> dict:
              "-g", fx["genome"], "-m", weights, "-n", "synthsample",
              "-s", "3"]))
     assert os.path.exists(vcf), f"the trained weights' CLI run wrote no {vcf}"
-    hold_launches("trained cli", "default", r, warmups=1,
+    hold_launches("trained cli", "default", r, warmups=warmup_batches(),
                   devices=mesh_devices())
     out["runs"]["cli_trained"] = r
     out.update(examples=len(labels), history=hist, train_acc=acc,
@@ -1399,12 +1619,19 @@ def check_trained_cli(fx: dict, work: str) -> dict:
 
 
 def check_training(params, fx: dict, work: str) -> dict:
-    out = {"step_vs_cpu": check_train_step(params),
-           "bf16_loss": check_bf16_loss(params),
-           "rates": train_rates(params),
-           "profile": profile_train_step(params),
-           "dp_tp": check_dp_tp(params),
-           "mini_loop": check_trained_cli(fx, work)}
+    out, seconds = {}, {}
+    for name, check in (("step_vs_cpu", check_train_step),
+                        ("graph_steps", check_graph_steps),
+                        ("bf16_loss", check_bf16_loss),
+                        ("rates", train_rates),
+                        ("profile", profile_train_step),
+                        ("dp_tp", check_dp_tp),
+                        ("mini_loop", lambda p: check_trained_cli(fx, work))):
+        t0 = time.perf_counter()
+        out[name] = check(params)
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"phase 7 seconds by check: {seconds}")
     out["runs"] = {f"train_{k}": v for k, v in out["rates"].items()}
     out["runs"].update(out["mini_loop"]["runs"])
     return out
@@ -1414,7 +1641,7 @@ def check_training(params, fx: dict, work: str) -> dict:
 
 def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     """The kernels line: each kernel's launches in every main-path run of
-    phases 4-7 (runs: name -> {"launches", "batches"}), its error against
+    phases 3-7 (runs: name -> {"launches", "batches"}), its error against
     its plain version, and its times and bound at the main path's dtype."""
     info = {
         "render_raster": ("svision_tpu_torch/csrc/raster.cu",
@@ -1429,7 +1656,7 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     rows = []
     for name, (src, replaces, dtype, tail) in info.items():
         main = next(v for v in kernels[name] if v["dtype"] == dtype
-                    and v.get("tail", tail) == tail)
+                    and v.get("tail", tail) == tail and v.get("segs", 2) == 2)
         launches = {run: r["launches"][name] for run, r in runs.items()}
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -1526,7 +1753,8 @@ def main(argv=None) -> int:
     REPORT["total_s"] = time.perf_counter() - t_all
     log(f"chip_smoke: {REPORT['total_s']:.1f} s in all")
 
-    runs = {f"cli_{k}": REPORT["cli"][k] for k in ("default", "exact")}
+    runs = {f"engine_{k}": REPORT["engine"][k] for k in ("bf16", "exact")}
+    runs.update({f"cli_{k}": REPORT["cli"][k] for k in ("default", "exact")})
     runs.update(REPORT["serve"]["runs"])
     runs.update(REPORT["shards"]["runs"])
     runs.update(REPORT["train"]["runs"])

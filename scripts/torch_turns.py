@@ -1,5 +1,5 @@
-"""The port's engine rate and K2 times for a parent and a change checkout,
-in alternating pairs, on one CUDA GPU.
+"""The port's engine and training rates and K2 times for a parent and a
+change checkout, in alternating pairs, on one CUDA GPU.
 
     python3 scripts/torch_turns.py PARENT CHANGE [--pairs 10] [--out FILE]
 
@@ -12,7 +12,13 @@ other checkout's package:
   chip_smoke.random_specs(8192, seed=3), batch 128, seed-0 weights, the
   best of 3 calls after a warm-up (chip_smoke.best_rate);
 - K2's times through the checkout's own wrapper (chip_smoke.check_pool_lrn):
-  back to back, and the cold-L2 median of single launches.
+  back to back, and the cold-L2 median of single launches;
+- fit_device's images/s in bf16 on the s2d path at batch 64
+  (chip_smoke.TRAIN_B), over the second of two epochs of
+  chip_smoke.RATE_STEPS steps, as chip_smoke phase 7 reads it; then, in a
+  second run, the device's idle share over that epoch under torch.profiler
+  (chip_smoke.device_time), started and stopped by the epoch-end log
+  calls, which follow a sync.
 The summary gives, per metric, each side's median, the parent's spread
 (the distance between its quartiles), and the pairs the change won. It
 calls a gain only where the change won at least 9 pairs in 10 and the
@@ -56,7 +62,35 @@ def measure(root: str) -> dict:
     for v in smoke.check_pool_lrn():
         out[f"K2 {v['tail']} {v['dtype']} ms"] = v["ms"]
         out[f"K2 {v['tail']} {v['dtype']} cold median ms"] = v["cold_ms"]["median"]
+    out.update(measure_training(smoke, params))
     return out
+
+
+def measure_training(smoke, params) -> dict:
+    """fit_device bf16 s2d: images/s over the second epoch, and the idle
+    share of that epoch profiled in another run."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from svision_tpu_torch.models.train import fit_device
+    specs, labels = smoke.labeled(smoke.TRAIN_B * smoke.RATE_STEPS, seed=10)
+    kw = dict(epochs=2, batch_size=smoke.TRAIN_B,
+              compute_dtype=torch.bfloat16, device="cuda")
+    stamps = []
+    fit_device(params, specs, labels,
+               log=lambda m: stamps.append(time.perf_counter()), **kw)
+    rate = smoke.RATE_STEPS * smoke.TRAIN_B / (stamps[1] - stamps[0])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    stamps.clear()
+
+    def epoch_end(_):
+        stamps.append(time.perf_counter())
+        (prof.start if len(stamps) == 1 else prof.stop)()
+    fit_device(params, specs, labels, log=epoch_end, **kw)
+    wall_ms = (stamps[1] - stamps[0]) * 1e3
+    _, busy_ms = smoke.device_time(prof, wall_ms, "fit_device epoch")
+    return {"fit_device bf16 s2d images/s": rate,
+            "fit_device bf16 s2d idle share": 1.0 - busy_ms / wall_ms}
 
 
 def summary(pairs: list) -> dict:
@@ -64,7 +98,7 @@ def summary(pairs: list) -> dict:
     for key in pairs[0]["parent"]:
         a = [p["parent"][key] for p in pairs]
         b = [p["change"][key] for p in pairs]
-        higher = key.endswith("images/s")
+        higher = key.endswith("images/s")   # else lower is better
         won = sum((y > x) if higher else (y < x) for x, y in zip(a, b))
         q = statistics.quantiles(a, n=4)
         spread = q[2] - q[0]

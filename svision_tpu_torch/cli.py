@@ -467,8 +467,8 @@ def run_pipeline(options: Options, engine=None) -> str:
         engine = InferenceEngine(params, batch_size=options.batch_size,
                                  bf16=options.bf16, device=options.device,
                                  devices=mesh)
-        # Build the kernels and set up cuDNN on a background thread while
-        # window collection proceeds.
+        # Build the kernels, set up cuDNN and capture the engine's CUDA
+        # graphs on a background thread while window collection proceeds.
         warmup_thread = engine.warmup_async()
     else:
         # serving mode (svision_tpu_torch.serve): a caller-owned engine is
@@ -561,6 +561,10 @@ def run_pipeline(options: Options, engine=None) -> str:
             with metrics.timer("predict"):
                 for fut in agg_futures:
                     fut.result()
+            if warmup_thread is not None:
+                # no chromosome ran: let the warm-up's captures finish
+                # before the process goes on to exit
+                warmup_thread.join()
     finally:
         if pool is not None:
             pool.shutdown()

@@ -9,15 +9,17 @@
 // output pixel, all three channels, so a warp stores 96 consecutive values.
 // The TPU kernel took channel 1 from a column reduction over the rendered
 // image; here each thread takes its column's lit-row count from the analytic
-// row runs (raster_common.cuh:col_rows), so no thread waits on another and
+// row runs (raster_common.cuh:col_rows_n), so no thread waits on another and
 // no block-wide reduction or shared memory is needed. The per-pixel
-// integer arithmetic (~150 ops) is the cost above the bound.
+// integer arithmetic (~150 ops at two segments) is the cost above the bound.
+// The segment count S is a template argument, 1 to 4: candidates carry two
+// segments, and training's fragmentation (models/train.py) makes four.
 
 #include "raster_common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int S>
 __global__ void __launch_bounds__(256)
 raster_kernel(const int* __restrict__ ep, const unsigned char* __restrict__ vis,
               const unsigned char* __restrict__ rev, T* __restrict__ out) {
@@ -26,41 +28,53 @@ raster_kernel(const int* __restrict__ ep, const unsigned char* __restrict__ vis,
   const int pix = blockIdx.y * blockDim.x + threadIdx.x;
   if (pix >= kCanvas * kCanvas) return;
   const int r = pix / kCanvas, c = pix % kCanvas;
-  const Seg a = load_seg(ep, vis, rev, n, 0);
-  const Seg b = load_seg(ep, vis, rev, n, 1);
-  int lo, hi;
-  row_run(a, r, lo, hi);
-  const bool la = in_run(c, lo, hi);
-  row_run(b, r, lo, hi);
-  const bool lb = in_run(c, lo, hi);
-  const bool ch0 = la || lb;
-  const bool ch1 = ch0 && col_rows(a, b, c) >= 2;
-  const bool ch2 = (la && a.rev) || (lb && b.rev);
+  Seg g[S];
+  bool ch0 = false, ch2 = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    g[s] = load_seg(ep, vis, rev, n, s, S);
+    int lo, hi;
+    row_run(g[s], r, lo, hi);
+    const bool lit = in_run(c, lo, hi);
+    ch0 = ch0 || lit;
+    ch2 = ch2 || (lit && g[s].rev);
+  }
+  const bool ch1 = ch0 && col_rows_n<S>(g, c) >= 2;
   T* o = out + ((size_t)n * kCanvas * kCanvas + pix) * 3;
   store_val(o + 0, ch0 ? 1.f : 0.f);
   store_val(o + 1, ch1 ? 1.f : 0.f);
   store_val(o + 2, ch2 ? 1.f : 0.f);
 }
 
+template <typename T>
+cudaError_t launch(const int* ep, const unsigned char* vis,
+                   const unsigned char* rev, T* out, int n, int segs,
+                   cudaStream_t stream) {
+  const dim3 grid(n, (svt::kCanvas * svt::kCanvas + 255) / 256);
+  switch (segs) {
+    case 1: raster_kernel<T, 1><<<grid, 256, 0, stream>>>(ep, vis, rev, out); break;
+    case 2: raster_kernel<T, 2><<<grid, 256, 0, stream>>>(ep, vis, rev, out); break;
+    case 3: raster_kernel<T, 3><<<grid, 256, 0, stream>>>(ep, vis, rev, out); break;
+    case 4: raster_kernel<T, 4><<<grid, 256, 0, stream>>>(ep, vis, rev, out); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// ep int32 [n,2,4], vis/rev bool [n,2], out [n,227,227,3] (bf16 when
-// bf16 != 0, else f32), all contiguous on the current device.
+// ep int32 [n,segs,4], vis/rev bool [n,segs] with 1 <= segs <= 4, out
+// [n,227,227,3] (bf16 when bf16 != 0, else f32), all contiguous on the
+// current device.
 extern "C" int svt_render_raster(const void* ep, const void* vis,
-                                 const void* rev, void* out, int n, int bf16,
-                                 void* stream) {
-  using namespace svt;
-  const dim3 grid(n, (kCanvas * kCanvas + 255) / 256);
+                                 const void* rev, void* out, int n, int segs,
+                                 int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* e = static_cast<const int*>(ep);
   const unsigned char* v = static_cast<const unsigned char*>(vis);
   const unsigned char* r = static_cast<const unsigned char*>(rev);
-  if (bf16) {
-    raster_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        e, v, r, static_cast<__nv_bfloat16*>(out));
-  } else {
-    raster_kernel<float><<<grid, 256, 0, s>>>(e, v, r,
-                                              static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      bf16 ? launch(e, v, r, static_cast<__nv_bfloat16*>(out), n, segs, s)
+           : launch(e, v, r, static_cast<float*>(out), n, segs, s);
+  return static_cast<int>(err);
 }

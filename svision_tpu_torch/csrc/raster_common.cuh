@@ -8,7 +8,8 @@
 // minor-axis offset is k(i) = max(0, ceil((2*minor*i - major) / (2*major))).
 // Every image row then holds one column run of a segment and every image
 // column one row run, so a pixel test is two compares and the duplication
-// channel's per-column lit-row count is the union size of two runs.
+// channel's per-column lit-row count is the union size of the segments' row
+// runs (two for a candidate, up to four for fragmented training segments).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,12 +32,13 @@ struct Seg {
   bool xmajor, vis, rev;
 };
 
-// Segment s of image n from endpoints int32 [N,2,4] and bool [N,2] flags.
+// Segment s of image n from endpoints int32 [N,segs,4] and bool [N,segs]
+// flags.
 __device__ __forceinline__ Seg load_seg(const int* __restrict__ ep,
                                         const unsigned char* __restrict__ vis,
                                         const unsigned char* __restrict__ rev,
-                                        int n, int s) {
-  const int* e = ep + (n * kSegs + s) * 4;
+                                        int n, int s, int segs = kSegs) {
+  const int* e = ep + (n * segs + s) * 4;
   const int c0 = e[0], r0 = e[1], c1 = e[2], r1 = e[3];
   const bool swap = c1 < c0;
   Seg g;
@@ -50,8 +52,8 @@ __device__ __forceinline__ Seg load_seg(const int* __restrict__ ep,
   g.xmajor = dx >= ady;
   g.major = max(dx, ady);
   g.minor = min(dx, ady);
-  g.vis = vis[n * kSegs + s] != 0;
-  g.rev = rev[n * kSegs + s] != 0;
+  g.vis = vis[n * segs + s] != 0;
+  g.rev = rev[n * segs + s] != 0;
   return g;
 }
 
@@ -123,6 +125,42 @@ __device__ __forceinline__ int col_rows(const Seg& a, const Seg& b, int c) {
   col_run(b, c, blo, bhi);
   const int inter = max(min(ahi, bhi) - max(alo, blo) + 1, 0);
   return max(ahi - alo + 1, 0) + max(bhi - blo + 1, 0) - inter;
+}
+
+// Lit rows of channel 0 in image column c over S segments: the size of the
+// union of their row runs. Inclusion-exclusion holds for two runs only, so
+// the runs are sorted by start (a fixed bubble network: static register
+// indices) and each adds the rows past the furthest end before it.
+template <int S>
+__device__ __forceinline__ int col_rows_n(const Seg* g, int c) {
+  if constexpr (S == 2) {
+    return col_rows(g[0], g[1], c);
+  } else {
+    int lo[S], hi[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) col_run(g[s], c, lo[s], hi[s]);
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) {
+#pragma unroll
+      for (int j = 0; j < S - 1 - i; ++j) {
+        if (lo[j] > lo[j + 1]) {
+          const int tl = lo[j], th = hi[j];
+          lo[j] = lo[j + 1];
+          hi[j] = hi[j + 1];
+          lo[j + 1] = tl;
+          hi[j + 1] = th;
+        }
+      }
+    }
+    int rows = 0, end = -1;   // rows are >= 0
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (lo[s] > hi[s]) continue;   // empty run
+      rows += max(hi[s] - max(lo[s], end + 1) + 1, 0);
+      end = max(end, hi[s]);
+    }
+    return rows;
+  }
 }
 
 // Whether pixel column c lies in the run [lo, hi].

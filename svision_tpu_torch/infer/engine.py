@@ -12,6 +12,12 @@ vectors come back to the host. Two numeric modes:
     (ops/raster_kernel.py) renders the images, conv1 and conv2 run through
     F.conv2d, each followed by the bias/ReLU/pool/LRN kernel; TF32 is off.
 
+A call is dispatched by the JAX engine's chunked plan (InferenceEngine.plan:
+`chunk` batches a dispatch, then a tail by the `tail` policy). On the card
+each dispatch shape (c batches, or one) is a CUDA graph per replica
+(graphs.py), captured once and replayed; on the CPU the same plan runs
+eagerly, batch by batch.
+
 The region aggregation that follows prediction is host code and lives in
 infer/aggregate.py, so workers that run it never import torch.
 """
@@ -20,31 +26,24 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from svision_tpu_torch import graphs
+from svision_tpu_torch.device import resolve_device
 from svision_tpu_torch.models.alexnet import AlexNet, fold_params_bf16
 from svision_tpu_torch.ops import rasterize
 from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
 from svision_tpu_torch.ops.raster_kernel import render_images
 
+__all__ = ["CHUNK", "TAIL", "InferenceEngine", "exact_f32", "resolve_device"]
 
-def resolve_device(device=None) -> torch.device:
-    """None -> the current CUDA device. Raises when CUDA is asked for (or
-    implied) and no GPU is present: the port never carries on on the CPU
-    unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' "
-                               "(--device cpu) to run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+# Defaults of the dispatch plan on the card; PERF.md says how they were
+# chosen.
+CHUNK = 8
+TAIL = "full"
 
 
 @contextlib.contextmanager
@@ -68,9 +67,23 @@ class InferenceEngine:
     """Batched raster + CNN forward with a fixed batch shape.
 
     predict_specs(specs[N,12]) -> (int64[N] argmax, f32[N] max softmax).
-    Every batch of a call is queued on each device's current stream from
-    pinned host memory, and the call synchronizes once per device, when the
-    results come back.
+    A call is dispatched by plan(N), the JAX engine's plan
+    (svision_tpu/infer/engine.py:252-353): up to one batch goes out alone;
+    more go out as dispatches of `chunk` batches and then a tail, which
+    under tail='full' goes out as single batches when it is at most 16
+    batches long and is padded to a full chunk otherwise, and under
+    tail='pow2' as the smallest covering power of 2 batches.
+
+    On the card each replica keeps one CUDA graph per dispatch shape (c
+    batches, or one) that reads static input buffers: a dispatch copies its
+    rows from pinned host memory into them, replays, and copies the static
+    outputs into the call's outputs before the next replay. warmup()
+    captures the shapes a 'full' plan uses; a 'pow2' tail shape is
+    captured when a plan first needs it. On the CPU the same plan runs
+    eagerly, batch by batch. Either way the call synchronizes once per
+    device, when the results come back. The eager path on the card
+    (_predict(..., graphed=False)) is the reference the graphs are held to;
+    nothing selects it.
 
     devices=(d0, d1, ...) makes the engine data-parallel, as a mesh does the
     JAX package's: one model replica per device, each batch's rows split
@@ -80,8 +93,11 @@ class InferenceEngine:
 
     _SENTINEL = np.array([[0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2]],
                          dtype=np.int64)   # create_batch.py:55
+    # tails up to this many batches go out as single batches under 'full'
+    _TAIL_SINGLE_MAX = 16
 
     def __init__(self, params, batch_size: int = 128, bf16: bool = True,
+                 chunk: Optional[int] = None, tail: Optional[str] = None,
                  device=None, devices=None):
         self.devices = tuple(resolve_device(d)
                              for d in (devices if devices else (device,)))
@@ -89,6 +105,11 @@ class InferenceEngine:
         nd = len(self.devices)
         self.batch_size = -(-batch_size // nd) * nd   # equal shards
         self.bf16 = bf16
+        self.chunk = CHUNK if chunk is None else int(chunk)
+        self.tail = TAIL if tail is None else tail
+        if self.chunk < 1 or self.tail not in ("full", "pow2"):
+            raise ValueError(f"chunk {self.chunk} must be >= 1 and tail "
+                             f"{self.tail!r} 'full' or 'pow2'")
         host = {k: np.asarray(v) for k, v in params.items()}
         if bf16:
             # fold + pre-cast once on the host: half the transfer, bit-equal
@@ -100,19 +121,57 @@ class InferenceEngine:
             model = AlexNet.from_params(host, s2d=bf16, device=dev)
             self._replicas.append(
                 (model, model.conv1_weight_hwio() if bf16 else None))
-        self._lock = threading.Lock()   # one predict at a time (warmup_async)
+        # (replica, batches) -> (static inputs, graphs.Graph)
+        self._graphs: Dict[Tuple[int, int], tuple] = {}
+        self._warm = False
+        # one call at a time (warmup_async); warmup() runs under it too
+        self._lock = threading.RLock()
 
-    def _pad(self, specs: np.ndarray, multiple: int) -> np.ndarray:
-        pad = (-specs.shape[0]) % multiple
-        if pad:
-            specs = np.concatenate(
-                [specs, np.repeat(self._SENTINEL, pad, 0)], 0)
-        return specs
+    def plan(self, n: int) -> Tuple[List[int], int]:
+        """(chunk sizes, single batches): the dispatches of a call of n
+        specs, in order, the chunks first. The same as the JAX engine's for
+        the same batch size, chunk and tail."""
+        bs = self.batch_size
+        if n == 0:
+            return [], 0
+        if n <= bs:
+            return [], 1
+        chunks: List[int] = []
+        remaining = -(-n // bs)            # batches needed
+        while remaining >= self.chunk:
+            chunks.append(self.chunk)
+            remaining -= self.chunk
+        singles = 0
+        if remaining:
+            if self.tail == "full":
+                if remaining <= self._TAIL_SINGLE_MAX:
+                    singles = remaining
+                else:
+                    chunks.append(self.chunk)
+            else:
+                c = 1
+                while c < remaining:
+                    c *= 2
+                chunks.append(min(c, self.chunk))
+        return chunks, singles
 
+    @torch.inference_mode()
     def warmup(self) -> None:
-        """Build the kernels and run one sentinel batch, so the first real
-        call pays no build or cuDNN set-up."""
-        self.predict_specs(np.repeat(self._SENTINEL, 1, 0))
+        """Ready the engine for the first real call. One eager sentinel
+        batch builds the kernels, sets K2's shared-memory attribute (which
+        must not first happen inside a capture) and settles cuDNN. On the
+        card the single-batch graph is then captured and replayed once, and
+        under tail='full' the full-chunk graph too."""
+        with self._lock:
+            self._predict(self._SENTINEL, graphed=False)
+            if self.device.type != "cuda":
+                return
+            self._warm = True
+            self._predict(self._SENTINEL, graphed=True)
+            if self.tail == "full" and self.chunk > 1:
+                self._predict(np.repeat(self._SENTINEL,
+                                        self.batch_size * self.chunk, 0),
+                              graphed=True)
 
     def warmup_async(self) -> threading.Thread:
         """Start warmup() on a daemon thread; returns the thread (join it
@@ -134,35 +193,93 @@ class InferenceEngine:
         # soft[argmax] == max(soft): softmax is monotone
         return logits.argmax(dim=1), torch.softmax(logits, dim=1).amax(dim=1)
 
+    def _run(self, d: int, ep, vis, rev) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Replica d's step over every batch share of ep's rows, eagerly
+        (or under a capture) -> (argmax, max softmax) over all rows."""
+        model, w_s2d = self._replicas[d]
+        sub = self.batch_size // len(self.devices)
+        preds, softs = [], []
+        for i in range(0, ep.shape[0], sub):
+            p, s = self._step(model, w_s2d, ep[i:i + sub], vis[i:i + sub],
+                              rev[i:i + sub])
+            preds.append(p)
+            softs.append(s.float())
+        return torch.cat(preds), torch.cat(softs)
+
+    def _graph(self, d: int, batches: int):
+        """Replica d's graph of `batches` batches and its static inputs,
+        captured at first need."""
+        key = (d, batches)
+        if key not in self._graphs:
+            dev = self.devices[d]
+            rows = batches * (self.batch_size // len(self.devices))
+            inputs = (torch.zeros((rows, rasterize.SEGS, 4), dtype=torch.int32,
+                                  device=dev),
+                      torch.zeros((rows, rasterize.SEGS), dtype=torch.bool,
+                                  device=dev),
+                      torch.zeros((rows, rasterize.SEGS), dtype=torch.bool,
+                                  device=dev))
+            self._graphs[key] = (inputs, graphs.capture(
+                lambda: self._run(d, *inputs), dev))
+        return self._graphs[key]
+
     @torch.inference_mode()
     def predict_specs(self, specs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """specs [N,12] -> (pred_ids int64 [N], softmax_sel f32 [N])."""
+        graphed = self.device.type == "cuda"
+        with self._lock:
+            if graphed and not self._warm:
+                self.warmup()
+            return self._predict(np.asarray(specs), graphed)
+
+    def _host_rows(self, specs: np.ndarray, batches: int) -> List[torch.Tensor]:
+        """One dispatch's endpoints (ep, vis, rev) on the host, device d's
+        rows of every batch contiguous in [d]; pinned for the card."""
+        nd = len(self.devices)
+        sub = self.batch_size // nd
+        host = [torch.from_numpy(np.ascontiguousarray(
+                    a.reshape(batches, nd, sub, *a.shape[1:]).swapaxes(0, 1)
+                    .reshape(nd, batches * sub, *a.shape[1:])))
+                for a in rasterize.specs_to_endpoints(specs)]
+        if self.device.type == "cuda":
+            host = [t.pin_memory() for t in host]
+        return host
+
+    def _predict(self, specs: np.ndarray, graphed: bool
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """specs through plan(N): replays of each replica's graphs when
+        graphed, else the eager step. Each dispatch's endpoints are made on
+        the host while the device runs the one before."""
         n = specs.shape[0]
         if n == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
-        bs, nd = self.batch_size, len(self.devices)
+        chunks, singles = self.plan(n)
+        sizes = chunks + [1] * singles
+        bs, nd, total = self.batch_size, len(self.devices), sum(sizes)
         sub = bs // nd                       # each device's rows of a batch
-        specs = self._pad(np.asarray(specs), bs)
-        ep, vis, rev = rasterize.specs_to_endpoints(specs)
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in (ep, vis, rev)]
-        if self.device.type == "cuda":
-            host = [t.pin_memory() for t in host]
-        total = specs.shape[0]
-        with self._lock, (exact_f32() if not self.bf16
-                          else contextlib.nullcontext()):
+        specs = np.concatenate(
+            [specs, np.repeat(self._SENTINEL, total * bs - n, 0)], 0)
+        with (exact_f32() if not self.bf16 else contextlib.nullcontext()):
             # device d holds rows [i + d*sub, i + (d+1)*sub) of each batch i
-            outs = [(torch.empty(total // nd, dtype=torch.int64, device=dev),
-                     torch.empty(total // nd, dtype=torch.float32, device=dev))
+            outs = [(torch.empty(total * sub, dtype=torch.int64, device=dev),
+                     torch.empty(total * sub, dtype=torch.float32, device=dev))
                     for dev in self.devices]
-            for i in range(0, total, bs):
+            b = 0
+            for c in sizes:
+                host = self._host_rows(specs[b * bs:(b + c) * bs], c)
+                rows = slice(b * sub, (b + c) * sub)
                 for d, dev in enumerate(self.devices):
-                    lo = i + d * sub
-                    batch = [t[lo:lo + sub].to(dev, non_blocking=True)
-                             for t in host]
-                    p, s = self._step(*self._replicas[d], *batch)
-                    preds, softs = outs[d]
-                    preds[i // nd:i // nd + sub] = p
-                    softs[i // nd:i // nd + sub] = s.float()
+                    if graphed:
+                        inputs, graph = self._graph(d, c)
+                        for buf, x in zip(inputs, host):
+                            buf.copy_(x[d], non_blocking=True)
+                        p, s = graph.replay()
+                    else:
+                        p, s = self._run(d, *(x[d].to(dev, non_blocking=True)
+                                              for x in host))
+                    outs[d][0][rows].copy_(p)
+                    outs[d][1][rows].copy_(s)
+                b += c
             # the call's one synchronization per device
             outs = [(p.cpu(), s.cpu()) for p, s in outs]
         # [device, batch, row] -> [batch, device, row]: the specs' order

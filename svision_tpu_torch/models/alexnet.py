@@ -25,6 +25,7 @@ Class ids: 0=DEL 1=INS 2=INV 3=DUP 4=tDUP (predict.py:133-142).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -32,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from svision_tpu_torch.device import resolve_device
 from svision_tpu_torch.ops.fused_pool_lrn import bias_relu_pool_lrn, lrn
 
 NUM_CLASSES = 5
@@ -54,8 +56,19 @@ _FC_SPECS = (
 )
 
 __all__ = ["AlexNet", "IMAGE_MEAN", "NUM_CLASSES", "fold_conv1_math",
+           "image_mean",
            "fold_conv1_params", "fold_params_bf16", "init_params", "lrn",
            "params_from_numpy", "params_to_numpy"]
+
+
+@functools.lru_cache(maxsize=None)
+def image_mean(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """IMAGE_MEAN as a [3] tensor, made once per dtype and device: a copy
+    from pageable host memory cannot be captured into a CUDA graph, and
+    the eager calls that precede every capture make it. Made outside
+    inference mode, so that autograd may save it too."""
+    with torch.inference_mode(False):
+        return torch.tensor(IMAGE_MEAN, dtype=dtype, device=device)
 
 
 def init_params(seed: int = 0, num_classes: int = NUM_CLASSES) -> Dict[str, np.ndarray]:
@@ -107,7 +120,7 @@ def fold_conv1_math(w, b):
     torch.einsum in another order, so the two biases differ by f32
     rounding."""
     if isinstance(w, torch.Tensor):
-        mean = torch.tensor(IMAGE_MEAN, dtype=w.dtype, device=w.device)
+        mean = image_mean(w.dtype, w.device)
         b_fold = b - torch.einsum("hwco,c->o", w, mean)
         pad = _K1_PAD - w.shape[0]
         w_pad = F.pad(w * 255.0, (0, 0, 0, 0, 0, pad, 0, pad))
@@ -216,15 +229,17 @@ class AlexNet(nn.Module):
 
     @classmethod
     def from_params(cls, params: Mapping[str, object], *, s2d: bool = False,
-                    device="cpu") -> "AlexNet":
+                    device=None) -> "AlexNet":
         """Build from TF-named params (params_from_numpy's input) without
         a random init; tensors keep their dtypes (f32, or fold_params_bf16's
-        bf16 with an f32 fc8 bias). Conv weights go channels_last."""
+        bf16 with an f32 fc8 bias). Conv weights go channels_last. The
+        model lies on the card unless device asks for the CPU
+        (resolve_device)."""
         state = params_from_numpy(params)
         with torch.device("meta"):
             model = cls(num_classes=state["fc8.bias"].shape[0], s2d=s2d)
         model.load_state_dict(state, assign=True)
-        model.to(device)
+        model.to(resolve_device(device))
         for name, _, _, _, _, _, _ in _CONV_SPECS:
             conv = getattr(model, name)
             conv.weight.data = conv.weight.data.contiguous(
@@ -233,11 +248,12 @@ class AlexNet(nn.Module):
 
     @classmethod
     def trainable(cls, params: Mapping[str, object],
-                  device="cpu") -> "AlexNet":
+                  device=None) -> "AlexNet":
         """The network as training holds it: f32 nn.Parameters that
         require grad, in reference space (conv1 stays [96,3,11,11]; the s2d
         trainer folds it inside its forward), copied from params, so the
-        caller's arrays are never updated in place. Train mode."""
+        caller's arrays are never updated in place. Train mode, on the card
+        unless device asks for the CPU."""
         copied = {k: torch.from_numpy(np.array(v, dtype=np.float32))
                   for k, v in params.items()}
         model = cls.from_params(copied, device=device)

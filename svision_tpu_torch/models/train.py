@@ -17,6 +17,14 @@ shuffle and augmentation) and, in fit, from the JAX loop's
 np.random.RandomState call order, so fit is step-for-step reproducible
 against the JAX package at keep_prob=1.
 
+On the card a step is a CUDA graph after its first eager steps
+(graphs.StepGraph), as the JAX trainers jit theirs: make_train_step's
+forward, backward, clip and SGD for fit, and for fit_device the whole step,
+from the gather of a batch's endpoints to the update (make_device_step).
+eager=True on make_train_step and make_device_step keeps the card's step
+eager, the reference the graphs are held to. On the CPU every step is
+eager.
+
 f32 training runs under training_precision (TF32 off, and oneDNN off on
 the CPU), so the card's step matches the CPU's; bf16 compute is the fast
 mode, with f32 master weights and f32 logits.
@@ -35,7 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from svision_tpu_torch.infer.engine import exact_f32, resolve_device
+from svision_tpu_torch import graphs
+from svision_tpu_torch.device import resolve_device
+from svision_tpu_torch.infer.engine import exact_f32
 from svision_tpu_torch.models import alexnet
 from svision_tpu_torch.models.alexnet import (AlexNet, fold_conv1_math, lrn,
                                               params_to_numpy)
@@ -162,22 +172,16 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
     return norm
 
 
-def make_train_step(model: AlexNet, *, learning_rate: float = 1e-3,
-                    clip_norm: Optional[float] = None, keep_prob: float = 0.5,
-                    compute_dtype=torch.float32, s2d: bool = False):
-    """Returns (optimizer, train_step). The JAX package's make_train_step
-    with optax.sgd(learning_rate, momentum=0.9), chained after
-    clip_by_global_norm(clip_norm) when clip_norm is given: torch's SGD
-    without dampening keeps the same trace (g + 0.9 t) and update (-lr t).
-
-    train_step(images, labels, generator) updates model's parameters in
-    place and returns the loss as a device tensor (no host sync). s2d=True:
-    images is the {0,1} s2d raster [N,57,57,48]."""
+def _sgd_step(model: AlexNet, learning_rate: float, clip_norm: Optional[float],
+              keep_prob: float, compute_dtype, s2d: bool):
+    """(optimizer, step, reset): step(images, labels, generator) runs the
+    forward, the backward, the clip and the SGD update into fresh or
+    existing gradients and returns the loss; reset() clears the gradients
+    (set to None)."""
     params = dict(model.named_parameters())
     opt = torch.optim.SGD(params.values(), lr=learning_rate, momentum=0.9)
 
-    def train_step(images, labels, generator):
-        opt.zero_grad(set_to_none=True)
+    def step(images, labels, generator):
         with training_precision(compute_dtype):
             loss = loss_fn(params, images, labels, generator, keep_prob,
                            compute_dtype, s2d)
@@ -186,6 +190,58 @@ def make_train_step(model: AlexNet, *, learning_rate: float = 1e-3,
             clip_by_global_norm_([q.grad for q in params.values()], clip_norm)
         opt.step()
         return loss.detach()
+
+    def reset():
+        opt.zero_grad(set_to_none=True)
+
+    return opt, step, reset
+
+
+def make_train_step(model: AlexNet, *, learning_rate: float = 1e-3,
+                    clip_norm: Optional[float] = None, keep_prob: float = 0.5,
+                    compute_dtype=torch.float32, s2d: bool = False,
+                    eager: bool = False):
+    """Returns (optimizer, train_step). The JAX package's make_train_step
+    with optax.sgd(learning_rate, momentum=0.9), chained after
+    clip_by_global_norm(clip_norm) when clip_norm is given: torch's SGD
+    without dampening keeps the same trace (g + 0.9 t) and update (-lr t).
+
+    train_step(images, labels, generator) updates model's parameters in
+    place and returns the loss as a device tensor (no host sync). s2d=True:
+    images is the {0,1} s2d raster [N,57,57,48].
+
+    On the card, unless eager, the step is a CUDA graph after its first
+    graphs.WARMUP_STEPS eager steps: every call copies images and labels
+    into static buffers, so they keep the first call's shapes and dtypes,
+    and takes the first call's generator, which the graph advances."""
+    opt, step, reset = _sgd_step(model, learning_rate, clip_norm, keep_prob,
+                                 compute_dtype, s2d)
+    dev = next(model.parameters()).device
+    if eager or dev.type != "cuda":
+        def train_step(images, labels, generator):
+            reset()
+            return step(images, labels, generator)
+        return opt, train_step
+
+    static = {}
+
+    def train_step(images, labels, generator):
+        if not static:
+            static.update(x=torch.empty_like(images),
+                          y=torch.empty_like(labels, device=dev),
+                          gen=generator)
+            static["graph"] = graphs.StepGraph(
+                lambda: step(static["x"], static["y"], static["gen"]), reset,
+                dev, generator)
+        elif (images.shape != static["x"].shape
+              or images.dtype != static["x"].dtype
+              or labels.shape != static["y"].shape
+              or generator is not static["gen"]):
+            raise ValueError("a graphed train_step takes the first call's "
+                             "shapes, dtypes and generator on every call")
+        static["x"].copy_(images)
+        static["y"].copy_(labels)
+        return static["graph"]().clone()
 
     return opt, train_step
 
@@ -325,7 +381,7 @@ def fragment_endpoints_torch(ep, vis, rev, generator: torch.Generator,
 
     As in the JAX package, the s2d raster draws segment slots 0 and 1
     only, so there a split segment keeps its first sub-segment and loses
-    the second."""
+    the second; the image path's raster (K1 on the card) draws all four."""
     c0, r0, c1, r1 = ep.unbind(-1)
     dc, dr = c1 - c0, r1 - r0
     major = torch.maximum(dc.abs(), dr.abs())
@@ -411,6 +467,77 @@ def fit(params, specs, labels, *, epochs: int = 3, batch_size: int = 32,
     return result(), history
 
 
+def make_device_step(model: AlexNet, ep_d, vis_d, rev_d, labels_d,
+                     generator: torch.Generator, *, batch_size: int,
+                     learning_rate: float = 5e-3, keep_prob: float = 0.5,
+                     compute_dtype=torch.float32, augment: bool = True,
+                     s2d: bool = True, noise_aug: bool = False,
+                     pixel_drop: float = 0.02, split_prob: float = 0.3,
+                     eager: bool = False):
+    """fit_device's step over a device-resident endpoint table (ep_d,
+    vis_d, rev_d from specs_to_endpoints, labels_d): returns (optimizer,
+    step), where step(idx, flip) trains on the rows idx (int64 [batch_size]
+    on the device) and returns the loss. It gathers the rows, jitters them, fragments them, flips them (flip, a
+    bool scalar tensor), rasterizes and drops pixels, as the JAX scan body
+    does (svision_tpu/models/train.py:368-404), then takes the train step
+    (clip 1, SGD momentum 0.9), every draw from generator.
+
+    s2d=True renders the {0,1} raster straight into conv1's space-to-depth
+    layout (the plain render_raster_s2d: no kernel) and trains through the
+    in-graph fold (forward_train_s2d); the flip is an endpoint mirror
+    (c -> 226 - c), which can differ from the image flip on Bresenham tie
+    pixels. s2d=False renders mean-subtracted images with K1, fragmented
+    segments included, and flips them; pixel drop is the s2d path's alone,
+    as in JAX.
+
+    On the card, unless eager, one CUDA graph holds the whole step after
+    its first graphs.WARMUP_STEPS eager steps: the host copies idx and flip
+    into static buffers and replays."""
+    dev = ep_d.device
+    opt, train, reset = _sgd_step(model, learning_rate, 1.0, keep_prob,
+                                  compute_dtype, s2d)
+    raster_dtype = (torch.bfloat16 if compute_dtype == torch.bfloat16
+                    else torch.float32)
+    idx_s = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+    flip_s = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def body():
+        ep_b, vis_b, rev_b = ep_d[idx_s], vis_d[idx_s], rev_d[idx_s]
+        if augment:
+            ep_b = jitter_endpoints_torch(ep_b, generator)
+        if noise_aug:
+            ep_b, vis_b, rev_b = fragment_endpoints_torch(
+                ep_b, vis_b, rev_b, generator, split_prob=split_prob)
+        if s2d:
+            mirrored = ep_b.clone()
+            mirrored[..., 0::2] = CANVAS - 1 - ep_b[..., 0::2]
+            ep_b = torch.where(flip_s, mirrored, ep_b)
+            images = rasterize.render_raster_s2d(ep_b, vis_b, rev_b,
+                                                 dtype=raster_dtype)
+            if noise_aug and pixel_drop > 0:
+                keep = torch.rand(images.shape, generator=generator,
+                                  device=dev) < 1.0 - pixel_drop
+                images = images * keep.to(images.dtype)
+        else:
+            images = render_images(ep_b, vis_b, rev_b, dtype=torch.float32)
+            images = torch.where(flip_s, images.flip(2), images)
+        return train(images, labels_d[idx_s], generator)
+
+    if eager or dev.type != "cuda":
+        def run():
+            reset()
+            return body()
+    else:
+        run = graphs.StepGraph(body, reset, dev, generator)
+
+    def step(idx, flip):
+        idx_s.copy_(idx)
+        flip_s.copy_(flip)
+        return run().clone()
+
+    return opt, step
+
+
 def fit_device(params, specs, labels, *, epochs: int = 16,
                batch_size: int = 32, seed: int = 0,
                learning_rate: float = 5e-3, keep_prob: float = 0.5,
@@ -422,20 +549,10 @@ def fit_device(params, specs, labels, *, epochs: int = 16,
     and optimizer state stay on the device, and shuffle, jitter,
     fragmentation, the flip, the raster, pixel drop and the step all run
     there from one device generator, with no host sync per step; the
-    loss is read once per epoch.
-
-    s2d=True (default) renders the {0,1} raster straight into conv1's
-    space-to-depth layout (the plain render_raster_s2d: no kernel) and
-    trains through the in-graph fold (forward_train_s2d); the flip is an
-    endpoint mirror (c -> 226 - c), which can differ from the image flip
-    on Bresenham tie pixels. s2d=False renders mean-subtracted images with
-    K1 and flips them. noise_aug needs s2d=True: K1 draws two segments,
-    and fragmentation makes four.
+    loss is read once per epoch. The step is make_device_step's (a CUDA
+    graph on the card); the per-epoch shuffle and flips stay outside it.
 
     Returns (params, history) like fit()."""
-    if noise_aug and not s2d:
-        raise ValueError("fit_device: noise_aug needs s2d=True (K1 draws "
-                         "two segments a candidate; fragmentation makes four)")
     dev = resolve_device(device)
     specs = np.asarray(specs)
     labels_np = np.asarray(labels, np.int64)
@@ -447,12 +564,12 @@ def fit_device(params, specs, labels, *, epochs: int = 16,
                           for a in rasterize.specs_to_endpoints(specs))
     labels_d = torch.from_numpy(labels_np).to(dev)
     model = AlexNet.trainable(params, device=dev)
-    _, step = make_train_step(model, learning_rate=learning_rate,
-                              clip_norm=1.0, keep_prob=keep_prob,
-                              compute_dtype=compute_dtype, s2d=s2d)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    raster_dtype = (torch.bfloat16 if compute_dtype == torch.bfloat16
-                    else torch.float32)
+    _, step = make_device_step(
+        model, ep_d, vis_d, rev_d, labels_d, gen, batch_size=batch_size,
+        learning_rate=learning_rate, keep_prob=keep_prob,
+        compute_dtype=compute_dtype, augment=augment, s2d=s2d,
+        noise_aug=noise_aug, pixel_drop=pixel_drop, split_prob=split_prob)
     epoch_means = []
     for epoch in range(epochs):
         idxs = torch.randperm(n, generator=gen, device=dev)[
@@ -460,30 +577,7 @@ def fit_device(params, specs, labels, *, epochs: int = 16,
         flips = (torch.rand(steps, generator=gen, device=dev) < 0.5
                  if augment else torch.zeros(steps, dtype=torch.bool,
                                              device=dev))
-        losses = []
-        for s in range(steps):
-            idx = idxs[s]
-            ep_b, vis_b, rev_b = ep_d[idx], vis_d[idx], rev_d[idx]
-            if augment:
-                ep_b = jitter_endpoints_torch(ep_b, gen)
-            if noise_aug:
-                ep_b, vis_b, rev_b = fragment_endpoints_torch(
-                    ep_b, vis_b, rev_b, gen, split_prob=split_prob)
-            if s2d:
-                mirrored = ep_b.clone()
-                mirrored[..., 0::2] = CANVAS - 1 - ep_b[..., 0::2]
-                ep_b = torch.where(flips[s], mirrored, ep_b)
-                images = rasterize.render_raster_s2d(
-                    ep_b, vis_b, rev_b, dtype=raster_dtype)
-                if noise_aug and pixel_drop > 0:
-                    keep = torch.rand(images.shape, generator=gen,
-                                      device=dev) < 1.0 - pixel_drop
-                    images = images * keep.to(images.dtype)
-            else:
-                images = render_images(ep_b, vis_b, rev_b,
-                                       dtype=torch.float32)
-                images = torch.where(flips[s], images.flip(2), images)
-            losses.append(step(images, labels_d[idx], gen))
+        losses = [step(idxs[s], flips[s]) for s in range(steps)]
         epoch_means.append(torch.stack(losses).mean())
         if log:
             log(f"epoch {epoch}: mean loss {epoch_means[-1].item():.4f}")

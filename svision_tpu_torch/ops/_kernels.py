@@ -35,7 +35,7 @@ _I = ctypes.c_int
 # C entry points: name -> (source, argtypes). Every entry returns the
 # cudaError_t of its launch as an int.
 ENTRIES = {
-    "svt_render_raster": ("raster.cu", [_P, _P, _P, _P, _I, _I, _P]),
+    "svt_render_raster": ("raster.cu", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "svt_bias_relu_pool_lrn": ("pool_lrn.cu",
                                [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_conv1_fused_raster": ("conv1_raster.cu",
@@ -146,14 +146,18 @@ def check_cuda(*tensors) -> None:
                              f"{[str(u.device) for u in tensors]}")
 
 
-def check_segments(endpoints, visible, reverse) -> int:
+def check_segments(endpoints, visible, reverse, segs=(2,)) -> int:
     """Validate the raster kernels' segment inputs; returns the image count.
-    endpoints int32 [N,2,4], visible/reverse bool [N,2], all contiguous."""
+    endpoints int32 [N,S,4], visible/reverse bool [N,S], all contiguous,
+    with S one of segs (K3 reads two segments an image, K1 one to four)."""
     check_cuda(endpoints, visible, reverse)
-    n = endpoints.shape[0]
-    for name, t, dtype, shape in (("endpoints", endpoints, torch.int32, (n, 2, 4)),
-                                  ("visible", visible, torch.bool, (n, 2)),
-                                  ("reverse", reverse, torch.bool, (n, 2))):
+    n, s = endpoints.shape[:2] if endpoints.dim() == 3 else (-1, -1)
+    if s not in segs:
+        raise ValueError(f"endpoints: expected [N,S,4] with S in {tuple(segs)}, "
+                         f"got {tuple(endpoints.shape)}")
+    for name, t, dtype, shape in (("endpoints", endpoints, torch.int32, (n, s, 4)),
+                                  ("visible", visible, torch.bool, (n, s)),
+                                  ("reverse", reverse, torch.bool, (n, s))):
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")

@@ -16,17 +16,21 @@ import torch
 from svision_tpu_torch.ops import _kernels, rasterize
 from svision_tpu_torch.ops.rasterize import CANVAS
 
+SEG_COUNTS = (1, 2, 3, 4)   # segment counts the kernel is instantiated for
+
 
 def render_raster(endpoints: torch.Tensor, visible: torch.Tensor,
                   reverse: torch.Tensor, *, dtype=torch.float32) -> torch.Tensor:
-    """[N,SEGS,4] int32 clipped endpoints + bool [N,SEGS] flags -> {0,1}
-    raster [N,227,227,3] (NHWC) in dtype (float32, the exact path's, or
-    bfloat16). Not differentiable (_kernels.check_no_grad)."""
+    """[N,S,4] int32 clipped endpoints + bool [N,S] flags -> {0,1} raster
+    [N,227,227,3] (NHWC) in dtype (float32, the exact path's, or
+    bfloat16). S is 1 to 4 on the card: candidates carry two segments,
+    fit_device's fragmentation four. Not differentiable
+    (_kernels.check_no_grad)."""
     _kernels.check_no_grad("render_raster", endpoints, visible, reverse)
     if endpoints.device.type == "cpu":
         return rasterize.render_raster(endpoints, visible, reverse,
                                        dtype=dtype)
-    n = _kernels.check_segments(endpoints, visible, reverse)
+    n = _kernels.check_segments(endpoints, visible, reverse, segs=SEG_COUNTS)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"render_raster: unsupported dtype {dtype}")
     out = torch.empty((n, CANVAS, CANVAS, 3), dtype=dtype,
@@ -35,7 +39,8 @@ def render_raster(endpoints: torch.Tensor, visible: torch.Tensor,
         with torch.cuda.device(endpoints.device):
             _kernels.launch("svt_render_raster", endpoints.data_ptr(),
                             visible.data_ptr(), reverse.data_ptr(),
-                            out.data_ptr(), n, int(dtype == torch.bfloat16),
+                            out.data_ptr(), n, endpoints.shape[1],
+                            int(dtype == torch.bfloat16),
                             _kernels.stream_of(endpoints))
         render_raster.launches += 1
     return out

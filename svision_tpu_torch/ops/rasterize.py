@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from svision_tpu_torch.ops import bresenham
-from svision_tpu_torch.models.alexnet import IMAGE_MEAN
+from svision_tpu_torch.models.alexnet import image_mean
 
 CANVAS = 227
 SEGS = 2          # candidate records carry exactly two segments
@@ -220,8 +220,7 @@ def render_raster_s2d(endpoints: torch.Tensor, visible: torch.Tensor,
 def normalize_raster(raster: torch.Tensor) -> torch.Tensor:
     """{0,1} raster -> the reference's mean-subtracted tensor
     (create_batch.py:146-150): raster*255 - IMAGE_MEAN in raster's dtype."""
-    mean = torch.tensor(IMAGE_MEAN, dtype=raster.dtype, device=raster.device)
-    return raster * 255.0 - mean
+    return raster * 255.0 - image_mean(raster.dtype, raster.device)
 
 
 def render_images(endpoints: torch.Tensor, visible: torch.Tensor,

@@ -51,7 +51,8 @@ import time
 
 def build_engine(ns):
     """The warm engine: weights on ns.device (and the --mesh devices),
-    kernels built and one sentinel batch run."""
+    kernels built, one sentinel batch run and, on the card, the dispatch
+    plan's CUDA graphs captured (InferenceEngine.warmup)."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     from svision_tpu_torch.models.checkpoint import load_params
     from svision_tpu_torch.parallel.mesh import resolve_mesh

@@ -58,7 +58,7 @@ def test_params_from_numpy_round_trip():
 def test_forward_matches_jax(batch):
     params = _rand_params()
     want = np.asarray(ja.forward(params, jnp.asarray(batch)))
-    model = ta.AlexNet.from_params(params)
+    model = ta.AlexNet.from_params(params, device="cpu")
     got = model(torch.from_numpy(batch)).numpy()
     assert got.dtype == np.float32 and got.shape == (4, 5)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
@@ -72,7 +72,8 @@ def test_forward_s2d_matches_jax(batch):
     h = np.array(ja._space_to_depth(jnp.asarray(raster)))
     want = np.asarray(ja.forward_s2d(folded, jnp.asarray(h),
                                      compute_dtype=jnp.float32))
-    model = ta.AlexNet.from_params(ta.fold_conv1_params(params), s2d=True)
+    model = ta.AlexNet.from_params(ta.fold_conv1_params(params), s2d=True,
+                                   device="cpu")
     got = model.forward_s2d(torch.from_numpy(h)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     assert (got.argmax(1) == want.argmax(1)).all()
@@ -87,7 +88,8 @@ def test_bf16_forward_s2d_agrees_with_jax(batch):
     jf = ja.fold_params_bf16(params)
     want = np.asarray(ja.forward_s2d(jf, jnp.asarray(h),
                                      compute_dtype=jnp.bfloat16))
-    model = ta.AlexNet.from_params(ta.fold_params_bf16(params), s2d=True)
+    model = ta.AlexNet.from_params(ta.fold_params_bf16(params), s2d=True,
+                                   device="cpu")
     got = model.forward_s2d(torch.from_numpy(h).to(torch.bfloat16))
     assert got.dtype == torch.float32
     assert (got.numpy().argmax(1) == want.argmax(1)).all()

@@ -1,9 +1,11 @@
 """The port's InferenceEngine on the CPU against the JAX package's on
 bench.random_specs: exact mode argmax equal and softmax within 1e-5, bf16
-mode agreeing on at least 95% of argmaxes, and the N=0 and N<batch
-shapes."""
+mode agreeing on at least 95% of argmaxes, the N=0 and N<batch shapes, and
+the chunked dispatch plan: the same dispatches as the JAX engine's, and
+outputs that do not depend on chunk or tail."""
 import numpy as np
 import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -72,3 +74,62 @@ def test_pool_lrn_inputs_need_no_copy(params, specs, bf16, monkeypatch):
                     device="cpu").predict_specs(specs[:4])
     dt = torch.bfloat16 if bf16 else torch.float32
     assert seen == [((55, 55, 96), True, dt, dt), ((27, 27, 256), True, dt, dt)]
+
+
+@pytest.mark.parametrize("tail", ["full", "pow2"])
+@pytest.mark.parametrize("chunk", [2, 4])
+def test_plan_matches_jax_dispatches(params, chunk, tail, monkeypatch):
+    """plan(n) against the dispatches the JAX engine makes for n specs, at
+    batch 8, n from 0 to 40 batches plus a remainder: its device steps are
+    wrapped to record their batch counts (and return zeros, so nothing is
+    compiled)."""
+    import svision_tpu.infer.engine as je
+    calls = []
+
+    def many(params, ep, vis, rev, **kw):
+        calls.append(("chunk", ep.shape[0]))
+        m = ep.shape[0] * ep.shape[1]
+        return jnp.zeros(m, jnp.int32), jnp.zeros(m, jnp.float32)
+
+    def single(params, ep, vis, rev, **kw):
+        calls.append(("single", 1))
+        return jnp.zeros(ep.shape[0], jnp.int32), jnp.zeros(ep.shape[0])
+    monkeypatch.setattr(je, "_device_step_many", many)
+    monkeypatch.setattr(je, "_device_step_fast", single)
+    monkeypatch.setattr(je, "_device_step", single)
+    jeng = JaxEngine(params, batch_size=8, chunk=chunk, tail=tail)
+    eng = InferenceEngine(params, batch_size=8, bf16=False, chunk=chunk,
+                          tail=tail, device="cpu")
+    specs = random_specs(8 * 41, seed=2)
+    for n in [8 * k + r for k in range(41) for r in (0, 5)]:
+        calls.clear()
+        jeng.predict_specs(specs[:n])
+        chunks, singles = eng.plan(n)
+        assert [("chunk", c) for c in chunks] + [("single", 1)] * singles \
+            == calls, n
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_outputs_do_not_depend_on_plan(params, bf16):
+    """83 specs at batch 4 (21 batches) under plans of 21 single-batch
+    chunks, chunks of 2 and a single batch, chunks of 4 and a power-of-2
+    tail, and one 32-batch chunk (a tail longer than 16 batches padded to
+    a full chunk): the same outputs, bit for bit."""
+    specs = random_specs(83, seed=1)
+    got = []
+    for chunk, tail in ((1, "full"), (2, "full"), (4, "pow2"), (32, "full")):
+        eng = InferenceEngine(params, batch_size=4, bf16=bf16, chunk=chunk,
+                              tail=tail, device="cpu")
+        got.append((eng.plan(83), eng.predict_specs(specs)))
+    assert [plan for plan, _ in got] == [([1] * 21, 0), ([2] * 10, 1),
+                                         ([4] * 5 + [1], 0), ([32], 0)]
+    for _, (p, s) in got[1:]:
+        np.testing.assert_array_equal(p, got[0][1][0])
+        np.testing.assert_array_equal(s, got[0][1][1])
+
+
+def test_plan_options_are_checked(params):
+    with pytest.raises(ValueError):
+        InferenceEngine(params, batch_size=4, chunk=0, device="cpu")
+    with pytest.raises(ValueError):
+        InferenceEngine(params, batch_size=4, tail="half", device="cpu")

@@ -17,6 +17,8 @@ from svision_tpu_torch.ops import rasterize
 
 pytestmark = pytest.mark.gpu
 
+torch.set_num_threads(2)
+
 SPECS = np.array([
     [0, 0, 5, 6, 1, 10, 10, 10, 11, 1, 227, 227],
     [3, 3, 0, 227, 1, 0, 200, 7, 8, 1, 227, 227],
@@ -46,6 +48,28 @@ def test_raster_kernel_bit_exact(cuda, dtype):
     got = raster_kernel.render_raster(*seg, dtype=dtype)
     assert raster_kernel.render_raster.launches == before + 1
     assert torch.equal(got, rasterize.render_raster(*seg, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raster_kernel_four_segments(cuda, dtype):
+    """K1 at S = 4 (fit_device's fragmented endpoints on the image path):
+    bit-exact, on random segments half of which overlap in a 24-pixel
+    corner and on fragment_endpoints_torch's output."""
+    from svision_tpu_torch.models import train
+    rng = np.random.RandomState(6)
+    n = 64
+    hi = np.where(np.arange(n) % 2 == 0, 24, rasterize.CANVAS)[:, None, None]
+    ep = (rng.randint(0, 1 << 20, (n, 4, 4)) % hi).astype(np.int32)
+    cases = [[torch.from_numpy(a).to(cuda)
+              for a in (ep, rng.rand(n, 4) < 0.75, rng.rand(n, 4) < 0.5)],
+             train.fragment_endpoints_torch(
+                 *_batch(cuda, n), torch.Generator(device=cuda).manual_seed(1),
+                 split_prob=0.5)]
+    for seg in cases:
+        before = raster_kernel.render_raster.launches
+        got = raster_kernel.render_raster(*seg, dtype=dtype)
+        assert raster_kernel.render_raster.launches == before + 1
+        assert torch.equal(got, rasterize.render_raster(*seg, dtype=dtype))
 
 
 def _check_pool_lrn(dev, n, h, w, c, dtype, bias_dtype):
@@ -191,3 +215,98 @@ def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
         assert v.grad is not None, f"{k}: no gradient"
         assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0, k
         assert not torch.equal(v.detach(), start[k]), f"{k}: not updated"
+
+
+# launches per batch of each engine mode's step
+PER_BATCH = {True: {"render_raster": 0, "bias_relu_pool_lrn": 2,
+                    "conv1_fused_raster": 1},
+             False: {"render_raster": 1, "bias_relu_pool_lrn": 2,
+                     "conv1_fused_raster": 0}}
+
+
+def _launches():
+    from svision_tpu_torch import graphs
+    return {w.__name__: w.launches for w in graphs.kernel_wrappers()}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_engine_graphs_equal_eager(cuda, bf16):
+    """The engine's graph replays against its eager step on the card, bit
+    for bit, at n = 1, 128, 129, a short tail (17 x 128 + 5), a long one
+    (chunk + 20 batches) and 8,192; every kernel counter equals launches
+    per batch x the batches run, captures excluded and replays counted."""
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from bench import random_specs
+    eng = InferenceEngine(init_params(0), bf16=bf16)
+    start = _launches()
+    eng.warmup()
+    batches = 2 + (eng.chunk if eng.tail == "full" and eng.chunk > 1 else 0)
+    for n in (1, 128, 129, 17 * 128 + 5, (eng.chunk + 20) * 128, 8192):
+        specs = random_specs(n, seed=n)
+        p, s = eng.predict_specs(specs)
+        with torch.inference_mode():
+            ep, es = eng._predict(specs, graphed=False)
+        chunks, singles = eng.plan(n)
+        batches += 2 * (sum(chunks) + singles)
+        assert np.array_equal(p, ep) and np.array_equal(s, es), n
+    got = {k: v - start[k] for k, v in _launches().items()}
+    assert got == {k: v * batches for k, v in PER_BATCH[bf16].items()}
+
+
+@pytest.mark.parametrize("s2d", [True, False])
+def test_device_step_graph_equals_eager(cuda, s2d):
+    """fit_device's step (make_device_step) at keep_prob 1 without
+    augmentation: after the eager warm-up steps, the first replay against
+    an eager step from the same weights, momentum and batch: the same loss
+    and parameters within 1e-6 of their largest entries (max-pool's
+    backward adds with atomics on the card, so not bit for bit). K1 runs
+    once a step on the image path, replays counted."""
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import (AlexNet, params_to_numpy)
+    from bench import random_specs
+    n = 16 * (graphs.WARMUP_STEPS + 1)
+    seg = [torch.from_numpy(a).to(cuda) for a in
+           rasterize.specs_to_endpoints(random_specs(n, seed=3))]
+    labels = torch.arange(n, device=cuda) % 5
+    flip = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def trainer(model, eager):
+        return train.make_device_step(
+            model, *seg, labels, torch.Generator(device=cuda).manual_seed(0),
+            batch_size=16, keep_prob=1.0, augment=False, s2d=s2d, eager=eager)
+
+    model = AlexNet.trainable(init_params(0), device=cuda)
+    opt, step = trainer(model, eager=False)
+    before = raster_kernel.render_raster.launches
+    rows = [torch.arange(16 * i, 16 * (i + 1), device=cuda)
+            for i in range(graphs.WARMUP_STEPS + 1)]
+    for idx in rows[:-1]:
+        step(idx, flip)
+    twin = AlexNet.trainable(params_to_numpy(dict(model.named_parameters())),
+                             device=cuda)
+    twin_opt, twin_step = trainer(twin, eager=True)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        twin_opt.state[q]["momentum_buffer"] = \
+            opt.state[p]["momentum_buffer"].clone()
+    got, want = float(step(rows[-1], flip)), float(twin_step(rows[-1], flip))
+    assert raster_kernel.render_raster.launches - before == \
+        (0 if s2d else 2 + graphs.WARMUP_STEPS)
+    assert abs(got - want) <= 1e-6 * abs(want)
+    for (k, p), q in zip(model.named_parameters(), twin.parameters()):
+        assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k
+
+
+def test_graphed_dropout_draws_new_masks(cuda):
+    """Replays at keep_prob 0.5 on one batch with a zero learning rate (the
+    weights stay put) draw new dropout masks: every loss differs."""
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet
+    model = AlexNet.trainable(init_params(0), device=cuda)
+    _, step = train.make_train_step(model, learning_rate=0.0, keep_prob=0.5)
+    x = raster_kernel.render_images(*_batch(cuda, 16))
+    y = torch.arange(16, device=cuda) % 5
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    losses = [float(step(x, y, gen)) for _ in range(graphs.WARMUP_STEPS + 3)]
+    assert len(set(losses)) == len(losses), losses

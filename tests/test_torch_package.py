@@ -27,7 +27,8 @@ def test_imports_with_jax_absent():
             "svision_tpu_torch.ops.fused_conv1, svision_tpu_torch.serve, "
             "svision_tpu_torch.parallel.mesh, svision_tpu_torch.parallel.dist, "
             "svision_tpu_torch.parallel.cohort, svision_tpu_torch.models.train, "
-            "svision_tpu_torch.models.dataset, svision_tpu_torch.evaluate; "
+            "svision_tpu_torch.models.dataset, svision_tpu_torch.evaluate, "
+            "svision_tpu_torch.graphs, svision_tpu_torch.device; "
             "assert not any(m == 'svision_tpu' or m.startswith('svision_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
@@ -40,6 +41,10 @@ def _python_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    scripts = os.path.join(ROOT, "scripts")
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(scripts, f)
 
 
 def _imported_modules(path):
@@ -68,6 +73,26 @@ def test_engine_without_gpu_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(init_params(0))
+
+
+def test_models_without_gpu_raise(monkeypatch):
+    """The AlexNet constructors and the trainers run on the CPU only when
+    asked, as the engine does."""
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet, init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = init_params(0)
+    specs = np.repeat([[0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2]], 4, 0)
+    calls = [lambda: AlexNet.from_params(params),
+             lambda: AlexNet.trainable(params),
+             lambda: train.fit(params, specs, np.zeros(4), batch_size=4),
+             lambda: train.fit_device(params, specs, np.zeros(4),
+                                      batch_size=4)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert AlexNet.from_params(params, device="cpu").fc8.weight.device.type \
+        == "cpu"
 
 
 def test_wrappers_refuse_non_cuda_devices():

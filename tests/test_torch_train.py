@@ -75,7 +75,7 @@ def test_forward_and_grads_match_jax(params, batch, path):
     jgrad = jax.jit(jax.grad(lambda p, x: jt.loss_fn(
         p, x, jnp.asarray(labels), rng, 1.0, s2d=s2d)))(params, jnp.asarray(x))
 
-    model = ta.AlexNet.trainable(params)
+    model = ta.AlexNet.trainable(params, device="cpu")
     p = dict(model.named_parameters())
     tfwd = tt.forward_train_s2d if s2d else tt.forward_train
     with tt.training_precision(torch.float32):
@@ -112,7 +112,7 @@ def test_two_train_steps_match_jax(params, batch, clip):
 
     got = {}
     for dtype in (torch.float32, torch.float64):
-        model = ta.AlexNet.trainable(params).to(dtype)
+        model = ta.AlexNet.trainable(params, device="cpu").to(dtype)
         _, step = tt.make_train_step(model, learning_rate=1e-3,
                                      clip_norm=clip, keep_prob=1.0,
                                      compute_dtype=dtype)
@@ -174,7 +174,7 @@ def test_s2d_grad_matches_image_path(params, batch):
     """Within the port: the s2d forward (in-graph fold) against the image
     forward, logits and conv1's gradient, as tests/test_training.py holds
     the JAX package's two paths."""
-    model = ta.AlexNet.trainable(params)
+    model = ta.AlexNet.trainable(params, device="cpu")
     p = dict(model.named_parameters())
     out, grads = {}, {}
     with tt.training_precision(torch.float32):
@@ -252,9 +252,42 @@ def test_fit_device_noise_aug_runs(params):
                            noise_aug=True, device="cpu")
     assert len(h) == 1 and np.isfinite(h).all()
     assert not np.array_equal(out["conv1/weights"], params["conv1/weights"])
-    with pytest.raises(ValueError, match="s2d"):
-        tt.fit_device(params, specs, labels, noise_aug=True, s2d=False,
-                      device="cpu")
+
+
+def test_plain_raster_matches_jax_on_fragments():
+    """Fragmented [N,4,4] endpoints (fit_device's noise augmentation on the
+    image path): the port's plain raster, which K1 is held to on the card,
+    bit-equal to JAX's render_raster, visible and invisible slots included.
+    Half the images keep their lines inside a 24-pixel corner, so their row
+    runs overlap in shared columns (the union of four runs)."""
+    rng = np.random.RandomState(6)
+    n = 16
+    hi = np.where(np.arange(n) % 2 == 0, 24, tr.CANVAS)[:, None, None]
+    ep = (rng.randint(0, 1 << 20, (n, 4, 4)) % hi).astype(np.int32)
+    vis = rng.rand(n, 4) < 0.75
+    vis[0] = False                            # nothing visible
+    rev = rng.rand(n, 4) < 0.5
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        want = np.asarray(jr.render_raster(jnp.asarray(ep), jnp.asarray(vis),
+                                           jnp.asarray(rev), dtype=jdtype),
+                          np.float32)
+        got = tr.render_raster(torch.from_numpy(ep), torch.from_numpy(vis),
+                               torch.from_numpy(rev), dtype=dtype)
+        assert got.shape == (n, 227, 227, 3) and got.dtype == dtype
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    assert want[..., 1].any() and want[..., 2].any()
+
+
+def test_fit_device_noise_aug_image_path(params):
+    """fit_device(noise_aug=True, s2d=False) renders the fragmented
+    endpoints (four segments an image) on the image path and trains."""
+    specs, labels = _labeled_specs(16, seed=2)
+    out, h = tt.fit_device(params, specs, labels, epochs=1, batch_size=8,
+                           seed=1, learning_rate=0.01, augment=True,
+                           noise_aug=True, s2d=False, device="cpu")
+    assert len(h) == 1 and np.isfinite(h).all()
+    assert not np.array_equal(out["fc8/weights"], params["fc8/weights"])
 
 
 def test_dp_tp_step_matches_one_device(params, batch):
@@ -272,7 +305,7 @@ def test_dp_tp_step_matches_one_device(params, batch):
     gens = {torch.device("cpu"): _cpu_gen()}
     mloss = mstep(images, labels, gens)
 
-    model = ta.AlexNet.trainable(params)
+    model = ta.AlexNet.trainable(params, device="cpu")
     _, step = tt.make_train_step(model, learning_rate=1e-3, clip_norm=1.0,
                                  keep_prob=1.0)
     loss = step(images, labels, _cpu_gen())
