@@ -42,9 +42,16 @@ Phases, each of which fails the run with a non-zero exit on any check:
      fragmented segments too; the bf16 s2d fit_device step profiled,
      graphed and eager; the DP x TP step where two GPUs are visible; and a
      mini closed loop (build_dataset, fit_device, evaluate) whose weights
-     go through phase 4's CLI.
+     go through phase 4's CLI;
+  8. run the engine's other modes (raster='compare', 'einsum' and 'pallas'
+     in bf16 and int8, and the unfolded bf16 network, fast=False) on phase
+     3's 8,192 specs: each mode's graph replays bit for bit against its
+     eager step, its launches per batch x batches, against an all-plain
+     engine, the three rasters of one network against each other bit for
+     bit, each mode against phase 3's engines, images/s graphed and eager,
+     and the graph memory; then profile the 'pallas' engines.
 Launches count kernels executed: a graph replay adds the launches its
-capture held (svision_tpu_torch/graphs.py), and every run of phases 3-7
+capture held (svision_tpu_torch/graphs.py), and every run of phases 3-8
 holds them to launches per batch or step x the batches or steps run.
 Then it prints one {"kernels": [...]} line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
@@ -73,6 +80,8 @@ PLAIN_REPS = 5
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; f32 FMA
 REPORT = {}
+# phase 3's engine outputs on its 8,192 specs, by mode, for phase 8
+PREDS = {}
 
 
 def log(msg: str) -> None:
@@ -273,18 +282,22 @@ def plain_kernels():
     (they then run on the card as torch ops). A CUDA graph captured before
     the swap still holds the kernels: build and capture an engine inside."""
     from svision_tpu_torch.infer import engine
-    from svision_tpu_torch.models import alexnet
+    from svision_tpu_torch.models import alexnet, int8
     from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, rasterize
     saved = (engine.conv1_fused_raster, engine.render_images,
-             alexnet.bias_relu_pool_lrn)
+             engine.render_raster_kernel, alexnet.bias_relu_pool_lrn,
+             int8.bias_relu_pool_lrn)
     engine.conv1_fused_raster = fused_conv1.conv1_fused_raster_plain
     engine.render_images = rasterize.render_images
+    engine.render_raster_kernel = rasterize.render_raster
     alexnet.bias_relu_pool_lrn = fused_pool_lrn.bias_relu_pool_lrn_plain
+    int8.bias_relu_pool_lrn = fused_pool_lrn.bias_relu_pool_lrn_plain
     try:
         yield
     finally:
         (engine.conv1_fused_raster, engine.render_images,
-         alexnet.bias_relu_pool_lrn) = saved
+         engine.render_raster_kernel, alexnet.bias_relu_pool_lrn,
+         int8.bias_relu_pool_lrn) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -581,6 +594,7 @@ def check_engine(params) -> dict:
         hold_launches(f"engine {mode}", "default" if bf16 else "exact", run,
                       warmups=0)
         p, s = eng.predict_specs(specs)
+        PREDS[mode] = (p, s)
         best = best_rate(eng, specs)
         eager = eager_rate(eng, specs)
         plan = dict(chunk=eng.chunk, tail=eng.tail)
@@ -619,11 +633,12 @@ def check_engine(params) -> dict:
 def on_device(e) -> bool:
     """A profiler event that is a kernel or copy on the device. A user
     annotation's span on the device track (Optimizer.step#SGD.step) is
-    none."""
+    none; a kernel whose name holds a lambda (torch's elementwise and copy
+    kernels: "...::{lambda()#1}...") is one."""
     from torch.autograd import DeviceType
     return (e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key)
+            and ("#" not in e.key or "{lambda(" in e.key))
 
 
 def device_time(prof, wall_ms: float, what: str):
@@ -652,11 +667,13 @@ def device_time(prof, wall_ms: float, what: str):
     return per_kernel, busy_ms
 
 
-def profile_engine(params, n: int = 2048) -> dict:
+def profile_engine(params, modes=(("bf16", {}), ("exact", dict(bf16=False))),
+                   eager: bool = True, n: int = 2048) -> dict:
     """Device time per batch by kernel, and the device's idle share, for
-    one call of n specs in each mode, through the graphs (predict_specs;
-    CUPTI traces the kernels inside a replay) and through the eager step
-    (torch.profiler; the profiler's own overhead widens the idle share).
+    one call of n specs in each mode (name, engine arguments), through the
+    graphs (predict_specs; CUPTI traces the kernels inside a replay) and,
+    with eager, through the eager step (torch.profiler; the profiler's own
+    overhead widens the idle share).
     The device is busy for the union of its kernels' and copies' intervals:
     copies overlap kernels, so the sum of their times may exceed the wall
     time."""
@@ -666,10 +683,10 @@ def profile_engine(params, n: int = 2048) -> dict:
 
     specs = random_specs(n, seed=4)
     out = {}
-    for mode, bf16 in (("bf16", True), ("exact", False)):
-        eng = InferenceEngine(params, batch_size=B, bf16=bf16)
+    for mode, kw in modes:
+        eng = InferenceEngine(params, batch_size=B, **kw)
         eng.warmup()
-        for how, graphed in (("", True), ("_eager", False)):
+        for how, graphed in (("", True), ("_eager", False))[:1 + eager]:
             def call():
                 with torch.inference_mode():
                     eng._predict(specs, graphed=graphed)
@@ -699,6 +716,98 @@ def profile_engine(params, n: int = 2048) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the engine's other modes
+# ---------------------------------------------------------------------------
+
+def check_modes(params) -> dict:
+    """Phase 8: each of MODES on phase 3's 8,192 specs. Its graph replays
+    bit-equal to its eager step, launches per batch x batches, images/s
+    graphed and eager, the memory its graphs keep, and an all-plain engine
+    built and captured inside plain_kernels() (argmax agreement >= 0.99).
+    Across modes: the three rasters of one network give the same bits;
+    bf16 agrees with phase 3's s2d engine (K3, argmax >= 0.99), int8 with
+    it at test_int8.py's bar (>= 0.9), the unfolded bf16 network and the
+    s2d one with phase 3's exact engine (>= 0.95, the bf16 bar of
+    tests/test_torch_engine.py)."""
+    import torch
+    from svision_tpu_torch.infer.engine import InferenceEngine
+
+    specs = random_specs(8192, seed=3)
+    out = {}
+    for mode, (kw, k1) in MODES.items():
+        t_mode = time.perf_counter()
+        eng = InferenceEngine(params, batch_size=B, **kw)
+        assert eng.raster == kw.get("raster", "compare" if eng.int8
+                                    else "s2d"), (mode, eng.raster)
+        assert eng.compute_dtype == (torch.int8 if "int8" in kw
+                                     else torch.bfloat16), mode
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        graph_bytes = torch.cuda.memory_reserved() - reserved
+        with counted() as run:
+            p, s = eng.predict_specs(specs)
+            with torch.inference_mode():
+                ep, es = eng._predict(specs, graphed=False)
+        assert np.array_equal(p, ep) and np.array_equal(s, es), \
+            f"{mode} engine: graphs differ from the eager step"
+        hold_launches(f"engine {mode}", mode, run, warmups=0)
+        assert np.isfinite(s).all() and ((s > 0) & (s <= 1)).all(), mode
+        rate = best_rate(eng, specs)
+        eager = eager_rate(eng, specs, calls=2)
+        del eng
+        torch.cuda.empty_cache()
+        with plain_kernels():
+            plain = InferenceEngine(params, batch_size=B, **kw)
+            plain.warmup()
+            pp, ps = plain.predict_specs(specs)
+            del plain
+        torch.cuda.empty_cache()
+        agree = float((p == pp).mean())
+        assert agree >= 0.99, f"{mode} engine vs all-plain: argmax {agree}"
+        PREDS[mode] = (p, s)
+        out[mode] = dict(
+            images_per_s=rate, eager_images_per_s=eager, warmup_s=warmup_s,
+            graph_reserved_bytes=graph_bytes, launches=run["launches"],
+            batches=run["batches"], k1_dtype=k1,
+            plain_argmax_agreement=agree,
+            plain_max_softmax_err=float(np.abs(s - ps).max()),
+            plain_bit_equal=bool(np.array_equal(p, pp)
+                                 and np.array_equal(s, ps)),
+            seconds=time.perf_counter() - t_mode, n=int(specs.shape[0]),
+            batch=B, **kw)
+        log(f"engine {mode} ({REPORT['device']['nvidia_smi']}): {out[mode]}")
+
+    for net in ("bf16", "int8"):
+        first = PREDS[f"{net}_compare"]
+        for kind in ("einsum", "pallas"):
+            p, s = PREDS[f"{net}_{kind}"]
+            assert np.array_equal(p, first[0]) and np.array_equal(s, first[1]), \
+                f"{net}: the {kind} raster's outputs differ from compare's"
+    # bf16 against f32 is held to tests/test_torch_engine.py's bf16 bar
+    bars = (("bf16_compare", "bf16", 0.99), ("int8_compare", "bf16", 0.9),
+            ("unfolded_bf16", "exact", 0.95), ("bf16", "exact", 0.95))
+    agreement = {}
+    for mode, ref, bar in bars:
+        a = float((PREDS[mode][0] == PREDS[ref][0]).mean())
+        agreement[f"{mode}_vs_{ref}"] = a
+        assert a >= bar, f"{mode} vs phase 3's {ref} engine: argmax {a} < {bar}"
+    out["agreement"] = agreement
+    log(f"phase 8 agreement: {agreement}; compare, einsum and pallas "
+        "bit-equal in bf16 and in int8")
+    out["profile"] = profile_engine(
+        params, modes=[(m, MODES[m][0]) for m in ("bf16_pallas",
+                                                  "int8_pallas")],
+        eager=False)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the CLI path
 # ---------------------------------------------------------------------------
 
@@ -722,6 +831,19 @@ PER_BATCH = {
               "conv1_fused_raster": 0},
     "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
             "conv1_fused_raster": 0}}
+# phase 8's modes: engine arguments, and K1's dtype where it runs
+MODES = {
+    "bf16_compare": (dict(raster="compare"), None),
+    "bf16_einsum": (dict(raster="einsum"), None),
+    "bf16_pallas": (dict(raster="pallas"), "bf16"),
+    "int8_compare": (dict(int8=True), None),     # 's2d' becomes 'compare'
+    "int8_einsum": (dict(int8=True, raster="einsum"), None),
+    "int8_pallas": (dict(int8=True, raster="pallas"), "bf16"),
+    "unfolded_bf16": (dict(fast=False), "f32"),
+}
+PER_BATCH.update({mode: {"render_raster": int(k1 is not None),
+                         "bias_relu_pool_lrn": 2, "conv1_fused_raster": 0}
+                  for mode, (_, k1) in MODES.items()})
 
 
 def kernel_wrappers() -> dict:
@@ -1641,28 +1763,39 @@ def check_training(params, fx: dict, work: str) -> dict:
 
 def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     """The kernels line: each kernel's launches in every main-path run of
-    phases 3-7 (runs: name -> {"launches", "batches"}), its error against
-    its plain version, and its times and bound at the main path's dtype."""
-    info = {
-        "render_raster": ("svision_tpu_torch/csrc/raster.cu",
-                          "svision_tpu/ops/pallas_raster.py:108", "f32", None),
-        "bias_relu_pool_lrn": ("svision_tpu_torch/csrc/pool_lrn.cu",
-                               "svision_tpu/ops/fused_pool_lrn.py:76", "bf16",
-                               "conv1"),
-        "conv1_fused_raster": ("svision_tpu_torch/csrc/conv1_raster.cu",
-                               "svision_tpu/ops/fused_conv1.py:155", "bf16",
-                               None),
-    }
+    phases 3-8 (runs: name -> {"launches", "batches"}, and "k1_dtype" where
+    K1 renders bf16), its error against its plain version, and its times
+    and bound at the main path's dtype. K1 has a row per dtype: f32 on the
+    exact path, bf16 on the 'pallas' engines of phase 8."""
+    info = (
+        ("render_raster", "render_raster", "svision_tpu_torch/csrc/raster.cu",
+         "svision_tpu/ops/pallas_raster.py:108", "f32", None),
+        ("render_raster_bf16", "render_raster",
+         "svision_tpu_torch/csrc/raster.cu",
+         "svision_tpu/ops/pallas_raster.py:108", "bf16", None),
+        ("bias_relu_pool_lrn", "bias_relu_pool_lrn",
+         "svision_tpu_torch/csrc/pool_lrn.cu",
+         "svision_tpu/ops/fused_pool_lrn.py:76", "bf16", "conv1"),
+        ("conv1_fused_raster", "conv1_fused_raster",
+         "svision_tpu_torch/csrc/conv1_raster.cu",
+         "svision_tpu/ops/fused_conv1.py:155", "bf16", None),
+    )
     rows = []
-    for name, (src, replaces, dtype, tail) in info.items():
+    for row, name, src, replaces, dtype, tail in info:
         main = next(v for v in kernels[name] if v["dtype"] == dtype
                     and v.get("tail", tail) == tail and v.get("segs", 2) == 2)
-        launches = {run: r["launches"][name] for run, r in runs.items()}
+        # K1's launches by the dtype each run renders in
+        mine = {run: r for run, r in runs.items()
+                if name != "render_raster"
+                or (r.get("k1_dtype") or "f32") == dtype}
+        launches = {run: r["launches"][name] for run, r in mine.items()}
+        errs = [v["max_abs_err"] for v in kernels[name]
+                if name != "render_raster" or v["dtype"] == dtype]
         rows.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
+            name=row, route="cuda", source=src, replaces=replaces,
             launches=sum(launches.values()), launches_by_run=launches,
-            batches_by_run={run: r["batches"] for run, r in runs.items()},
-            max_abs_err=max(v["max_abs_err"] for v in kernels[name]),
+            batches_by_run={run: r["batches"] for run, r in mine.items()},
+            max_abs_err=max(errs),
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, at=dict(dtype=dtype, shape=main["shape"]),
@@ -1750,6 +1883,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         REPORT["train"] = check_training(params, fx, work)
         log(f"phase 7: training ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    REPORT["modes"] = check_modes(params)
+    log(f"phase 8: the engine's other modes ok "
+        f"({time.perf_counter() - t0:.1f} s)")
     REPORT["total_s"] = time.perf_counter() - t_all
     log(f"chip_smoke: {REPORT['total_s']:.1f} s in all")
 
@@ -1758,6 +1895,7 @@ def main(argv=None) -> int:
     runs.update(REPORT["serve"]["runs"])
     runs.update(REPORT["shards"]["runs"])
     runs.update(REPORT["train"]["runs"])
+    runs.update({f"engine_{k}": REPORT["modes"][k] for k in MODES})
     line = kernel_line(REPORT["kernels"], runs, build)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

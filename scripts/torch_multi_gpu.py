@@ -10,7 +10,9 @@ script runs just them:
   at 1, 128, 129 and 8,192 specs, and against the one-GPU engine by
   chip_smoke phase 3's bars (bf16 argmax agreement at least 0.99; exact
   argmax equal and softmax within 1e-4), with its launches held to
-  launches per batch x batches x devices (chip_smoke.counted);
+  launches per batch x batches x devices (chip_smoke.counted); and the
+  int8 engine (raster='pallas'), whose replicas take whole batches, bit
+  for bit against the one-GPU int8 engine;
 - the CLI with --mesh 2 on chip_smoke phase 6's two-chromosome sample,
   its VCF byte-equal to the one-GPU run's;
 - chip_smoke.check_dp_tp: the DP x TP training step (model axis 2) in f64
@@ -36,12 +38,15 @@ def check_engines(smoke, params) -> dict:
     from svision_tpu_torch.infer.engine import InferenceEngine
     n_gpus = torch.cuda.device_count()
     out = {}
-    for mode, bf16 in (("bf16", True), ("exact", False)):
-        one = InferenceEngine(params, bf16=bf16)
+    for mode, kw in (("bf16", {}), ("exact", dict(bf16=False)),
+                     ("int8_pallas", dict(int8=True, raster="pallas"))):
+        bf16 = kw.get("bf16", True)
+        one = InferenceEngine(params, **kw)
         for nd in sorted({2, n_gpus}):
             devs = tuple(torch.device("cuda", i) for i in range(nd))
-            eng = InferenceEngine(params, bf16=bf16, devices=devs)
+            eng = InferenceEngine(params, devices=devs, **kw)
             eng.warmup()
+            got = {}
             with smoke.counted() as run:
                 for n in (1, 128, 129, 8192):
                     specs = smoke.random_specs(n, seed=n)
@@ -50,19 +55,27 @@ def check_engines(smoke, params) -> dict:
                         ep, es = eng._predict(specs, graphed=False)
                     assert np.array_equal(gp, ep) and np.array_equal(gs, es), \
                         f"{mode} x{nd}: graphs differ from eager at n={n}"
-                    # each device runs its share of a batch, which cuDNN
-                    # may sum in another order than the whole batch: the
-                    # bars of chip_smoke phase 3
-                    op, os_ = one.predict_specs(specs)
-                    agree = float((gp == op).mean())
-                    if bf16:
-                        assert agree >= 0.99, f"{mode} x{nd}: {agree}"
-                    else:
-                        assert agree == 1.0, f"{mode} x{nd}: {agree}"
-                        assert np.abs(gs - os_).max() <= 1e-4, f"x{nd}"
+                    got[n] = (specs, gp, gs)
             smoke.hold_launches(f"engine {mode} x{nd}",
+                                mode if eng.int8 else
                                 "default" if bf16 else "exact", run,
                                 warmups=0, devices=nd)
+            # the one-GPU engine runs outside the count: its own warm-up
+            # and launches are not the data-parallel engine's
+            for n, (specs, gp, gs) in got.items():
+                # each device runs its share of a batch, which cuDNN may
+                # sum in another order than the whole batch: the bars of
+                # chip_smoke phase 3
+                op, os_ = one.predict_specs(specs)
+                agree = float((gp == op).mean())
+                if eng.int8:
+                    assert np.array_equal(gp, op) and \
+                        np.array_equal(gs, os_), f"{mode} x{nd}: {agree}"
+                elif bf16:
+                    assert agree >= 0.99, f"{mode} x{nd}: {agree}"
+                else:
+                    assert agree == 1.0, f"{mode} x{nd}: {agree}"
+                    assert np.abs(gs - os_).max() <= 1e-4, f"x{nd}"
             out[f"{mode}_x{nd}"] = dict(launches=run["launches"],
                                         batches=run["batches"],
                                         images_per_s=smoke.best_rate(

@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's infer/engine.py. Per fixed-size batch the
 device runs raster -> AlexNet -> (argmax, softmax), and only two small
-vectors come back to the host. Two numeric modes:
+vectors come back to the host. The CLI runs two numeric modes:
 
   * bf16 fast path (default): the fused raster+conv1 kernel
     (ops/fused_conv1.py) reads the endpoints and the folded conv1 weights
@@ -11,6 +11,18 @@ vectors come back to the host. Two numeric modes:
   * exact f32 (bf16=False, the CLI's --exact): the raster kernel
     (ops/raster_kernel.py) renders the images, conv1 and conv2 run through
     F.conv2d, each followed by the bias/ReLU/pool/LRN kernel; TF32 is off.
+
+The JAX engine's other modes are here too, with its rules:
+  * raster= picks the fast path's encoder: 's2d' (the fused kernel above,
+    the default), or a {0,1} raster in bf16 -- 'compare'
+    (rasterize.render_raster), 'einsum' (rasterize.render_raster_einsum)
+    or 'pallas' (the raster kernel) -- into the folded network
+    (AlexNet.forward_raster). The four rasters are the same bits.
+  * int8=True (with bf16 and fast) runs the int8 network
+    (models/int8.py) on the raster; 's2d' then becomes 'compare', since
+    the fused kernel feeds no int8 network.
+  * fast=False (with bf16) renders f32 images with the raster kernel into
+    the unfolded network with bf16 weights.
 
 A call is dispatched by the JAX engine's chunked plan (InferenceEngine.plan:
 `chunk` batches a dispatch, then a tail by the `tail` policy). On the card
@@ -33,17 +45,24 @@ import torch
 
 from svision_tpu_torch import graphs
 from svision_tpu_torch.device import resolve_device
-from svision_tpu_torch.models.alexnet import AlexNet, fold_params_bf16
+from svision_tpu_torch.models.alexnet import (AlexNet, cast_params_bf16,
+                                              fold_conv1_params,
+                                              fold_params_bf16)
+from svision_tpu_torch.models.int8 import AlexNetInt8, quantize_params_int8
 from svision_tpu_torch.ops import rasterize
 from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
 from svision_tpu_torch.ops.raster_kernel import render_images
+from svision_tpu_torch.ops.raster_kernel import render_raster as render_raster_kernel
 
-__all__ = ["CHUNK", "TAIL", "InferenceEngine", "exact_f32", "resolve_device"]
+__all__ = ["CHUNK", "RASTERS", "TAIL", "InferenceEngine", "exact_f32",
+           "resolve_device"]
 
 # Defaults of the dispatch plan on the card; PERF.md says how they were
 # chosen.
 CHUNK = 8
 TAIL = "full"
+# the fast path's raster encoders (raster=)
+RASTERS = ("s2d", "compare", "einsum", "pallas")
 
 
 @contextlib.contextmanager
@@ -88,8 +107,15 @@ class InferenceEngine:
     devices=(d0, d1, ...) makes the engine data-parallel, as a mesh does the
     JAX package's: one model replica per device, each batch's rows split
     evenly across the devices (the batch size rounds up to a multiple of
-    their count), and the rows come back in order. Without it the engine
-    runs on `device`."""
+    their count), and the rows come back in order. In int8 mode each
+    replica takes whole batches of batch_size rows instead (the engine's
+    batch_size becomes batch_size x devices): an activation's scale is the
+    max over its batch, so the output stays that of one device. Without
+    devices the engine runs on `device`.
+
+    bf16, fast, raster and int8 select the numeric mode as the JAX engine's
+    arguments do (module docstring); int8, fast, raster and compute_dtype
+    (torch.int8, bfloat16 or float32) say which one it runs."""
 
     _SENTINEL = np.array([[0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2]],
                          dtype=np.int64)   # create_batch.py:55
@@ -98,29 +124,48 @@ class InferenceEngine:
 
     def __init__(self, params, batch_size: int = 128, bf16: bool = True,
                  chunk: Optional[int] = None, tail: Optional[str] = None,
-                 device=None, devices=None):
+                 device=None, devices=None, fast: bool = True,
+                 raster: str = "s2d", int8: bool = False):
+        if raster not in RASTERS:
+            raise ValueError(f"raster {raster!r} is not one of {RASTERS}")
         self.devices = tuple(resolve_device(d)
                              for d in (devices if devices else (device,)))
         self.device = self.devices[0]
         nd = len(self.devices)
-        self.batch_size = -(-batch_size // nd) * nd   # equal shards
         self.bf16 = bf16
+        self.int8 = int8 and bf16 and fast
+        self.fast = fast and bf16
+        # the fused kernel feeds no int8 network: the same raster in image
+        # layout does, visibly here
+        self.raster = "compare" if self.int8 and raster == "s2d" else raster
+        self.compute_dtype = (torch.int8 if self.int8 else
+                              torch.bfloat16 if bf16 else torch.float32)
+        self.batch_size = (batch_size * nd if self.int8
+                           else -(-batch_size // nd) * nd)   # equal shards
         self.chunk = CHUNK if chunk is None else int(chunk)
         self.tail = TAIL if tail is None else tail
         if self.chunk < 1 or self.tail not in ("full", "pow2"):
             raise ValueError(f"chunk {self.chunk} must be >= 1 and tail "
                              f"{self.tail!r} 'full' or 'pow2'")
         host = {k: np.asarray(v) for k, v in params.items()}
-        if bf16:
+        if self.int8:
+            host = quantize_params_int8(fold_conv1_params(host))
+        elif self.fast:
             # fold + pre-cast once on the host: half the transfer, bit-equal
             # weights (fold_params_bf16)
             host = fold_params_bf16(host)
+        elif bf16:
+            host = cast_params_bf16(host)
         # one replica per device: (model, conv1 weights for the fused kernel)
         self._replicas = []
         for dev in self.devices:
-            model = AlexNet.from_params(host, s2d=bf16, device=dev)
+            if self.int8:
+                model = AlexNetInt8.from_params(host, device=dev)
+            else:
+                model = AlexNet.from_params(host, s2d=self.fast, device=dev)
             self._replicas.append(
-                (model, model.conv1_weight_hwio() if bf16 else None))
+                (model, model.conv1_weight_hwio()
+                 if self.fast and self.raster == "s2d" else None))
         # (replica, batches) -> (static inputs, graphs.Graph)
         self._graphs: Dict[Tuple[int, int], tuple] = {}
         self._warm = False
@@ -185,11 +230,20 @@ class InferenceEngine:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One batch (or one device's share of it) on the device ->
         (argmax, max softmax)."""
-        if self.bf16:
-            pre = conv1_fused_raster(ep, vis, rev, w_s2d)
-            logits = model.forward_conv1(pre)
-        else:
+        if not self.fast:
             logits = model(render_images(ep, vis, rev, dtype=torch.float32))
+        elif self.raster == "s2d":
+            logits = model.forward_conv1(conv1_fused_raster(ep, vis, rev,
+                                                            w_s2d))
+        else:
+            if self.raster == "pallas":
+                raster = render_raster_kernel(ep, vis, rev,
+                                              dtype=torch.bfloat16)
+            elif self.raster == "einsum":
+                raster = rasterize.render_raster_einsum(ep, vis, rev)
+            else:
+                raster = rasterize.render_raster(ep, vis, rev)
+            logits = model.forward_raster(raster)
         # soft[argmax] == max(soft): softmax is monotone
         return logits.argmax(dim=1), torch.softmax(logits, dim=1).amax(dim=1)
 

@@ -55,10 +55,10 @@ _FC_SPECS = (
     ("fc8", 4096, NUM_CLASSES),
 )
 
-__all__ = ["AlexNet", "IMAGE_MEAN", "NUM_CLASSES", "fold_conv1_math",
-           "image_mean",
+__all__ = ["AlexNet", "IMAGE_MEAN", "NUM_CLASSES", "cast_params_bf16",
+           "fold_conv1_math", "image_mean",
            "fold_conv1_params", "fold_params_bf16", "init_params", "lrn",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "space_to_depth"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,16 +152,34 @@ def fold_conv1_params(params: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]
     return out
 
 
-def fold_params_bf16(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Host-side preparation of the fast path: fold conv1, then pre-cast
-    every leaf to the dtype the bf16 network reads it in -- bf16 everywhere
-    except fc8's bias, which stays f32 for the logits. torch's bf16 cast is
+def cast_params_bf16(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Pre-cast every leaf to the dtype the bf16 network reads it in --
+    bf16 everywhere except fc8's bias, which stays f32 for the logits, as
+    the JAX package's bf16 network casts them. torch's bf16 cast is
     round-to-nearest-even, so the result is bit-equal to the JAX package's
     ml_dtypes cast. Returns CPU tensors in the TF layouts."""
-    folded = fold_conv1_params({k: np.asarray(v) for k, v in params.items()})
     return {k: (torch.from_numpy(np.ascontiguousarray(v)) if k == "fc8/biases"
                 else torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16))
-            for k, v in folded.items()}
+            for k, v in params.items()}
+
+
+def fold_params_bf16(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Host-side preparation of the fast path: fold conv1, then
+    cast_params_bf16."""
+    return cast_params_bf16(
+        fold_conv1_params({k: np.asarray(v) for k, v in params.items()}))
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [N,227,227,C] -> [N,57,57,16C]: pad to 228 and fold 4x4 blocks
+    into channels, ordered (c,p,q) as fold_conv1_params and
+    render_raster_s2d order them. Contiguous."""
+    n, h, w, c = x.shape
+    hp = -h % _S2D
+    x = F.pad(x, (0, 0, 0, hp, 0, hp))
+    hh = (h + hp) // _S2D
+    return (x.reshape(n, hh, _S2D, hh, _S2D, c).permute(0, 1, 3, 5, 2, 4)
+            .reshape(n, hh, hh, _S2D * _S2D * c))
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +298,13 @@ class AlexNet(nn.Module):
         return self.forward_conv1(pre.permute(0, 2, 3, 1))
 
     forward_s2d = forward
+
+    def forward_raster(self, raster: torch.Tensor) -> torch.Tensor:
+        """Logits f32 [N,5] from a {0,1} raster NHWC [N,227,227,3] (s2d=True):
+        space_to_depth, then the folded network. The same as
+        forward(raster*255 - IMAGE_MEAN) on the unfolded weights, up to the
+        fold's f32 rounding."""
+        return self.forward(space_to_depth(raster.to(self.compute_dtype)))
 
     def forward_conv1(self, pre: torch.Tensor) -> torch.Tensor:
         """Logits from conv1's pre-activation, NHWC [N,55,55,96] (what the

@@ -4,6 +4,8 @@ Counterpart of the JAX package's ops/rasterize.py. These are the plain
 versions of the port's raster kernels (ops/raster_kernel.py and
 ops/fused_conv1.py): tensor code that runs on any device, bit-exact against
 the JAX functions, and the reference the CUDA kernels are held against.
+render_raster and render_raster_einsum are also two of the engine's raster
+encoders on the card ('compare' and 'einsum', infer/engine.py).
 
 Semantics replicated bit-for-bit from the reference (create_batch.py:101-152,
 plot_segment.py:33-73):
@@ -31,6 +33,7 @@ from svision_tpu_torch.models.alexnet import image_mean
 
 CANVAS = 227
 SEGS = 2          # candidate records carry exactly two segments
+MAX_STEPS = 227   # a clipped line has at most CANVAS pixels
 _S2D_F = 4        # space-to-depth factor (== alexnet._S2D)
 S2D_BLOCKS = (CANVAS + _S2D_F - 1) // _S2D_F     # 57
 
@@ -111,6 +114,23 @@ def _k_runs(j, majorb, minorb):
     ilo = torch.where(minorb == 0, 0, ilo)
     ihi = torch.where(minorb == 0, majorb, ihi)
     return ilo, ihi
+
+
+def _line_walk(endpoints: torch.Tensor):
+    """Per-line pixel walk, closed form. endpoints int32 [..., 4]
+    (c0,r0,c1,r1) -> (cols, rows, valid), each [..., MAX_STEPS], int32 /
+    bool: step i of a line lies at (rows[i], cols[i]) while valid[i]."""
+    c0n, r0n, sy, xmajor, major, minor = _segments(endpoints)
+    i = torch.arange(MAX_STEPS, dtype=torch.int32, device=endpoints.device)
+    majorb = major[..., None]
+    minorb = minor[..., None]
+    valid = i <= majorb
+    k = _k_of(i, minorb, majorb)
+    xm = xmajor[..., None]
+    cols = torch.where(xm, c0n[..., None] + i, c0n[..., None] + k)
+    rows = torch.where(xm, r0n[..., None] + sy[..., None] * k,
+                       r0n[..., None] + sy[..., None] * i)
+    return cols, rows, valid
 
 
 def render_raster(endpoints: torch.Tensor, visible: torch.Tensor,
@@ -215,6 +235,34 @@ def render_raster_s2d(endpoints: torch.Tensor, visible: torch.Tensor,
     out = torch.stack([ch0, ch1, ch2], dim=3)                  # [N,R,C,3,p,q]
     return out.reshape(n, S2D_BLOCKS, S2D_BLOCKS,
                        3 * _S2D_F * _S2D_F).to(dtype)
+
+
+def render_raster_einsum(endpoints: torch.Tensor, visible: torch.Tensor,
+                         reverse: torch.Tensor, *,
+                         dtype=torch.bfloat16) -> torch.Tensor:
+    """[N,SEGS,4] clipped endpoints -> {0,1} raster [N,227,227,3] (NHWC),
+    as a one-hot contraction: each line's walk becomes one-hot row and
+    column vectors in bf16, and a pixel is lit iff the batched product of
+    the two over every step of every segment is positive (a sum of {0,1}
+    products, so its bf16 rounding keeps the sign)."""
+    n = endpoints.shape[0]
+    cols, rows, valid = _line_walk(endpoints)                  # [N,S,T]
+    valid = valid & visible.bool()[..., None]
+    t = torch.arange(CANVAS, dtype=torch.int32, device=endpoints.device)
+    onehot_r = ((rows[..., None] == t) & valid[..., None]).to(torch.bfloat16)
+    onehot_c = (cols[..., None] == t).to(torch.bfloat16)       # [N,S,T,227]
+    k = endpoints.shape[1] * MAX_STEPS
+    c_all = onehot_c.reshape(n, k, CANVAS)
+    ch0 = torch.einsum("nkr,nkc->nrc", onehot_r.reshape(n, k, CANVAS),
+                       c_all) > 0                               # [N,row,col]
+    rev = reverse.bool()[..., None, None].to(torch.bfloat16)    # [N,S,1,1]
+    ch2 = torch.einsum("nkr,nkc->nrc", (onehot_r * rev).reshape(n, k, CANVAS),
+                       c_all) > 0
+    # duplication channel: columns (ref axis) with >=2 lit rows
+    # (plot_segment.py:59-65)
+    col_rows = ch0.to(torch.int32).sum(dim=1, keepdim=True)
+    ch1 = ch0 & (col_rows >= 2)
+    return torch.stack([ch0, ch1, ch2], dim=-1).to(dtype)
 
 
 def normalize_raster(raster: torch.Tensor) -> torch.Tensor:

@@ -143,13 +143,15 @@ def gather_params(cells) -> Dict[str, np.ndarray]:
 
 
 def ShardedInference(params, mesh: Sequence[torch.device],
-                     batch_size: int = 128, bf16: bool = True):
+                     batch_size: int = 128, bf16: bool = True,
+                     fast: bool = True, chunk: int = 8):
     """Data-parallel raster+CNN forward over a mesh: the mesh-aware
     InferenceEngine (batch rows split over the devices, one model replica
-    each), so the single- and multi-device paths cannot drift."""
+    each; fast and chunk passed through), so the single- and multi-device
+    paths cannot drift."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     return InferenceEngine(params, batch_size=batch_size, bf16=bf16,
-                           devices=mesh)
+                           fast=fast, chunk=chunk, devices=mesh)
 
 
 def global_score_minmax(local_scores: np.ndarray,

@@ -253,6 +253,76 @@ def test_engine_graphs_equal_eager(cuda, bf16):
     assert got == {k: v * batches for k, v in PER_BATCH[bf16].items()}
 
 
+# the engine's other modes (engine arguments), and their launches per batch
+MODES = {
+    "bf16-compare": (dict(raster="compare"), (0, 2, 0)),
+    "bf16-einsum": (dict(raster="einsum"), (0, 2, 0)),
+    "bf16-pallas": (dict(raster="pallas"), (1, 2, 0)),
+    "int8-compare": (dict(int8=True), (0, 2, 0)),
+    "int8-einsum": (dict(int8=True, raster="einsum"), (0, 2, 0)),
+    "int8-pallas": (dict(int8=True, raster="pallas"), (1, 2, 0)),
+    "unfolded-bf16": (dict(fast=False), (1, 2, 0)),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_engine_mode_graphs_equal_eager(cuda, mode):
+    """test_engine_graphs_equal_eager for each of the engine's other modes
+    (raster kinds, int8, the unfolded bf16 network): replays bit-equal to
+    the eager step at n = 1, 129 and chunk + 20 batches, launches per
+    batch x batches."""
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from bench import random_specs
+    kw, per_batch = MODES[mode]
+    eng = InferenceEngine(init_params(0), **kw)
+    assert eng.raster == kw.get("raster", "compare" if eng.int8 else "s2d")
+    start = _launches()
+    eng.warmup()
+    batches = 2 + (eng.chunk if eng.tail == "full" and eng.chunk > 1 else 0)
+    for n in (1, 129, (eng.chunk + 20) * 128):
+        specs = random_specs(n, seed=n)
+        p, s = eng.predict_specs(specs)
+        with torch.inference_mode():
+            ep, es = eng._predict(specs, graphed=False)
+        chunks, singles = eng.plan(n)
+        batches += 2 * (sum(chunks) + singles)
+        assert np.array_equal(p, ep) and np.array_equal(s, es), n
+    got = {k: v - start[k] for k, v in _launches().items()}
+    names = ("render_raster", "bias_relu_pool_lrn", "conv1_fused_raster")
+    assert got == {k: v * batches for k, v in zip(names, per_batch)}
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_pallas_engine_raster_is_the_plain_raster(cuda, int8, monkeypatch):
+    """K1 in bf16 as the 'pallas' engine calls it, eagerly: every raster
+    it renders equals the plain raster of the same endpoints, and the
+    engine's outputs equal those of the 'compare' engine, which renders
+    the plain raster."""
+    from svision_tpu_torch.infer import engine
+    from bench import random_specs
+    seen, real = [], engine.render_raster_kernel
+
+    def recording(ep, vis, rev, dtype):
+        out = real(ep, vis, rev, dtype=dtype)
+        seen.append((ep.clone(), vis.clone(), rev.clone(), dtype, out.clone()))
+        return out
+    monkeypatch.setattr(engine, "render_raster_kernel", recording)
+    specs = random_specs(3 * 128 + 7, seed=9)
+    eng = engine.InferenceEngine(init_params(0), raster="pallas", int8=int8)
+    with torch.inference_mode():
+        got = eng._predict(specs, graphed=False)
+    assert len(seen) == 4
+    for ep, vis, rev, dtype, out in seen:
+        assert dtype == torch.bfloat16
+        assert torch.equal(out, rasterize.render_raster(ep, vis, rev,
+                                                        dtype=dtype))
+    cmp = engine.InferenceEngine(init_params(0), raster="compare", int8=int8)
+    with torch.inference_mode():
+        want = cmp._predict(specs, graphed=False)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("s2d", [True, False])
 def test_device_step_graph_equals_eager(cuda, s2d):
     """fit_device's step (make_device_step) at keep_prob 1 without

@@ -22,6 +22,7 @@ def test_imports_with_jax_absent():
             "sys.modules['ml_dtypes'] = None; "
             "import svision_tpu_torch, svision_tpu_torch.cli, "
             "svision_tpu_torch.infer.engine, svision_tpu_torch.models.alexnet, "
+            "svision_tpu_torch.models.int8, "
             "svision_tpu_torch.ops.raster_kernel, "
             "svision_tpu_torch.ops.fused_pool_lrn, "
             "svision_tpu_torch.ops.fused_conv1, svision_tpu_torch.serve, "
