@@ -12,7 +12,8 @@ Phases, each of which fails the run with a non-zero exit on any check:
      BAM decoder the CLI reads with;
   2. hold each kernel against its plain PyTorch version on the card, at the
      engine's batch of 128 and in both dtypes, and time both; K1 also on
-     fit_device's fragmented four segments an image; K3 bf16 also at
+     fit_device's fragmented four segments an image, and checked at
+     batches of 1 and 129 and on an all-dark batch; K3 bf16 also at
      batches of 1, 129 and 8,192 and on an all-dark batch;
   3. run the InferenceEngine in both numeric modes: its CUDA graphs bit for
      bit against its eager step at 1, 128, 129, 17 x 128 + 5, chunk + 20
@@ -324,11 +325,33 @@ def k3_from(lib: str):
     return call
 
 
+def fragments(ep, vis, rev):
+    """fit_device's fragmented four segments an image from two
+    (train.fragment_endpoints_torch, seeded)."""
+    import torch
+    from svision_tpu_torch.models import train
+    return train.fragment_endpoints_torch(
+        ep, vis, rev, torch.Generator(device=ep.device).manual_seed(1),
+        split_prob=0.5)
+
+
+def check_k1(seg, dt, kind: str, what: str):
+    """K1 against the plain raster, bit for bit: (raster, max abs error)."""
+    import torch
+    from svision_tpu_torch.ops import raster_kernel, rasterize
+    got = raster_kernel.render_raster(*seg, dtype=dt)
+    want = rasterize.render_raster(*seg, dtype=dt)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, want), \
+        f"K1 {kind} S={seg[0].shape[1]} {what}: raster differs ({err})"
+    return got, err
+
+
 def check_kernels(params, dense_k3) -> dict:
     import torch
     import torch.nn.functional as F
     from svision_tpu_torch.infer.engine import exact_f32
-    from svision_tpu_torch.models import train
     from svision_tpu_torch.models.alexnet import fold_conv1_params
     from svision_tpu_torch.ops import fused_conv1, rasterize
     from svision_tpu_torch.ops import raster_kernel
@@ -342,28 +365,42 @@ def check_kernels(params, dense_k3) -> dict:
     out = {}
 
     # K1: bit-exact in both dtypes, on the candidates' two segments and on
-    # fit_device's fragmented four (train.fragment_endpoints_torch)
-    frag = train.fragment_endpoints_torch(
-        ep, vis, rev, torch.Generator(device=dev).manual_seed(1),
-        split_prob=0.5)
+    # fit_device's fragmented four (train.fragment_endpoints_torch), timed
+    # at B; then at batches 1 and 129 (image bases at other 16-byte
+    # phases, a ragged grid) and on an all-dark batch, checked only
     variants = []
-    for seg in ((ep, vis, rev), frag):
+    for seg in ((ep, vis, rev), fragments(ep, vis, rev)):
         for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            got = raster_kernel.render_raster(*seg, dtype=dt)
-            want = rasterize.render_raster(*seg, dtype=dt)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            got, err = check_k1(seg, dt, kind, "B=128")
             segs = seg[0].shape[1]
-            assert torch.equal(got, want), \
-                f"K1 {kind} S={segs}: raster differs ({err})"
             b, by = bound_ms(nbytes(*seg, got), 0, kind)
+            ms = time_ms(lambda: raster_kernel.render_raster(*seg, dtype=dt))
             variants.append(dict(
-                dtype=kind, segs=segs, shape=list(got.shape), max_abs_err=err,
-                ms=time_ms(lambda: raster_kernel.render_raster(*seg, dtype=dt)),
+                dtype=kind, segs=segs, batch=B, shape=list(got.shape),
+                max_abs_err=err, ms=ms,
                 plain_ms=time_ms(lambda: rasterize.render_raster(*seg, dtype=dt),
                                  reps=PLAIN_REPS),
-                bound_ms=b, bound_by=by))
+                bound_ms=b, bound_by=by, bound_fraction=b / ms))
             log(f"K1 render_raster {kind} S={segs}: bit-exact, {variants[-1]}")
+    for n in (1, 129):
+        specs = random_specs(n, seed=4)
+        k = min(n, len(DEGENERATE))
+        specs[:k] = np.array(DEGENERATE, np.int64)[:k]
+        two = tuple(torch.from_numpy(a).to(dev)
+                    for a in rasterize.specs_to_endpoints(specs))
+        for seg in (two, fragments(*two)):
+            for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                _, err = check_k1(seg, dt, kind, f"B={n}")
+                variants.append(dict(dtype=kind, segs=seg[0].shape[1],
+                                     batch=n, max_abs_err=err))
+    for seg in ((ep, torch.zeros_like(vis), rev),
+                fragments(ep, torch.zeros_like(vis), rev)):
+        for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            got, err = check_k1(seg, dt, kind, "all-dark")
+            assert got.count_nonzero().item() == 0, f"K1 {kind}: all-dark != 0"
+            variants.append(dict(dtype=kind, segs=seg[0].shape[1], batch=B,
+                                 case="all-dark", max_abs_err=err))
+    log("K1 render_raster: bit-exact at B=1 and 129 and all-dark, S=2 and 4")
     out["render_raster"] = variants
 
     out["bias_relu_pool_lrn"] = check_pool_lrn()
@@ -1782,7 +1819,7 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     )
     rows = []
     for row, name, src, replaces, dtype, tail in info:
-        main = next(v for v in kernels[name] if v["dtype"] == dtype
+        main = next(v for v in kernels[name] if v["dtype"] == dtype and "ms" in v
                     and v.get("tail", tail) == tail and v.get("segs", 2) == 2)
         # K1's launches by the dtype each run renders in
         mine = {run: r for run, r in runs.items()

@@ -2,13 +2,15 @@
 change checkout, in alternating pairs, on one CUDA GPU.
 
     python3 scripts/torch_turns.py PARENT CHANGE [--pairs 10] [--out FILE]
+        [--engines-only]
 
 PARENT and CHANGE are checkouts holding svision_tpu_torch/. Each pair runs
 one measuring process per checkout, the parent first in even pairs and the
 change first in odd ones. A process builds its checkout's kernels into
 CHECKOUT/build/ and measures with this checkout's chip_smoke.py on the
 other checkout's package:
-- the InferenceEngine's images/s in bf16 and in exact mode on
+- the InferenceEngine's images/s in bf16 (the default s2d raster, K3), in
+  bf16 with raster='pallas' (K1 in bf16) and in exact mode (K1 in f32) on
   chip_smoke.random_specs(8192, seed=3), batch 128, seed-0 weights, the
   best of 3 calls after a warm-up (chip_smoke.best_rate);
 - K2's times through the checkout's own wrapper (chip_smoke.check_pool_lrn):
@@ -19,6 +21,7 @@ other checkout's package:
   second run, the device's idle share over that epoch under torch.profiler
   (chip_smoke.device_time), started and stopped by the epoch-end log
   calls, which follow a sync.
+--engines-only measures the engines alone.
 The summary gives, per metric, each side's median, the parent's spread
 (the distance between its quartiles), and the pairs the change won. It
 calls a gain only where the change won at least 9 pairs in 10 and the
@@ -38,7 +41,12 @@ SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "chip_smoke.py")
 
 
-def measure(root: str) -> dict:
+# the engines timed: name -> InferenceEngine arguments
+ENGINES = {"bf16": dict(bf16=True), "pallas bf16": dict(raster="pallas"),
+           "exact": dict(bf16=False)}
+
+
+def measure(root: str, engines_only: bool = False) -> dict:
     """One process's measurements, with root's package."""
     import importlib.util
     sys.path.insert(0, root)
@@ -52,13 +60,15 @@ def measure(root: str) -> dict:
     pkg = os.path.dirname(os.path.abspath(svision_tpu_torch.__file__))
     assert os.path.dirname(pkg) == root, pkg
     specs, params, out = smoke.random_specs(8192, seed=3), init_params(0), {}
-    for mode, bf16 in (("bf16", True), ("exact", False)):
-        eng = InferenceEngine(params, batch_size=smoke.B, bf16=bf16)
+    for mode, kw in ENGINES.items():
+        eng = InferenceEngine(params, batch_size=smoke.B, **kw)
         eng.warmup()
         eng.predict_specs(specs)
         out[f"engine {mode} images/s"] = smoke.best_rate(eng, specs)
         del eng
         torch.cuda.empty_cache()
+    if engines_only:
+        return out
     for v in smoke.check_pool_lrn():
         out[f"K2 {v['tail']} {v['dtype']} ms"] = v["ms"]
         out[f"K2 {v['tail']} {v['dtype']} cold median ms"] = v["cold_ms"]["median"]
@@ -113,13 +123,16 @@ def summary(pairs: list) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--measure"]:
-        print(json.dumps(measure(os.path.abspath(argv[1]))))
+        print(json.dumps(measure(os.path.abspath(argv[1]),
+                                 "--engines-only" in argv[2:])))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", help="the parent's checkout")
     ap.add_argument("change", help="the change's checkout")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out", help="write the results as JSON here")
+    ap.add_argument("--engines-only", action="store_true",
+                    help="measure the engines alone (no K2, no training)")
     args = ap.parse_args(argv)
     pairs = []
     for i in range(args.pairs):
@@ -128,7 +141,8 @@ def main(argv=None) -> int:
         for side in order:
             root = os.path.abspath(getattr(args, side))
             done = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--measure", root],
+                [sys.executable, os.path.abspath(__file__), "--measure", root]
+                + (["--engines-only"] if args.engines_only else []),
                 cwd=root, capture_output=True, text=True)
             if done.returncode != 0:
                 print(done.stdout + done.stderr, file=sys.stderr)

@@ -5,8 +5,13 @@ Counterpart of the JAX package's ops/pallas_raster.py
 csrc/raster.cu; its plain version is ops/rasterize.py:render_raster, which
 a CPU tensor goes to. A CUDA tensor launches the kernel or raises.
 
-Bound on an H100 at B=128: the f32 output write, 79.1 MB, 23.6 us at
-3.35 TB/s. The kernel's design note is in csrc/raster.cu.
+Bound on an H100 at B=128: the output write, 79.1 MB in f32 (23.6 us at
+3.35 TB/s) and 39.6 MB in bf16 (11.8 us). The kernel builds, per block of
+image rows, each segment's column run in every row and each column's
+channel-1 flag in shared memory once (their plain twin is
+rasterize.raster_tables), turns the runs into bit masks a row, and writes
+the output as 16-byte vectors, two shared loads and a compare for a dark
+one. Its design note is in csrc/raster.cu.
 """
 
 from __future__ import annotations

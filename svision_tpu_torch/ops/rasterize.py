@@ -171,6 +171,69 @@ def render_raster(endpoints: torch.Tensor, visible: torch.Tensor,
     return torch.stack([ch0, ch1, ch2], dim=-1).to(dtype)
 
 
+def raster_tables(endpoints: torch.Tensor, visible: torch.Tensor):
+    """The tables K1 (csrc/raster.cu) builds in shared memory, in plain
+    tensor code: [N,S,4] clipped endpoints + visible [N,S] ->
+      runs int32 [N,S,227,2]: the column run [clo, chi] segment s lights in
+        each image row, (228, -1) where it lights none (row_run);
+      col_rows int32 [N,227]: the lit rows of channel 0 in each column, the
+        size of the union of the segments' row runs there (col_rows_n).
+    raster_from_tables expands them into render_raster's raster. Nothing on
+    the main path calls these two: they are the plain twin of the kernel's
+    tables, held against the JAX package in the tests."""
+    c0n, r0n, sy, xmajor, major, minor = _segments(endpoints)
+    t = torch.arange(CANVAS, dtype=torch.int32, device=endpoints.device)
+
+    def e(v):                       # [N,S] -> [N,S,1]
+        return v[..., None]
+    majorb, minorb, xm, seen = e(major), e(minor), e(xmajor), e(visible.bool())
+
+    # row runs: row r is minor step j of an x-major line, major step j of a
+    # y-major one
+    j = e(sy) * (t - e(r0n))
+    ilo, ihi = _k_runs(j, majorb, minorb)
+    kj = _k_of(j, minorb, majorb)
+    ok = seen & (j >= 0) & (j <= torch.where(xm, minorb, majorb))
+    clo = torch.where(ok, e(c0n) + torch.where(xm, ilo, kj), CANVAS + 1)
+    chi = torch.where(ok, e(c0n) + torch.where(xm, ihi, kj), -1)
+    runs = torch.stack([clo, chi], dim=-1).to(torch.int32)
+
+    # column runs of rows, then the size of their union per column: sorted
+    # by start, each run adds its rows past the furthest end before it
+    i = t - e(c0n)
+    jlo, jhi = _k_runs(i, majorb, minorb)
+    kx = _k_of(i, minorb, majorb)
+    okc = seen & (i >= 0) & (i <= torch.where(xm, majorb, minorb))
+    ra = e(r0n) + e(sy) * torch.where(xm, kx, jlo)
+    rb = e(r0n) + e(sy) * torch.where(xm, kx, jhi)
+    big = torch.iinfo(torch.int32).max
+    rlo = torch.where(okc, torch.minimum(ra, rb), big)   # empty runs last
+    rhi = torch.where(okc, torch.maximum(ra, rb), -1)
+    rlo, order = torch.sort(rlo, dim=1, stable=True)
+    rhi = torch.gather(rhi, 1, order)
+    end = torch.cummax(rhi, dim=1).values
+    before = torch.cat([torch.full_like(end[:, :1], -1), end[:, :-1]], dim=1)
+    added = torch.clamp(rhi - torch.maximum(rlo, before + 1) + 1, min=0)
+    col_rows = added.sum(dim=1).to(torch.int32)
+    return runs, col_rows
+
+
+def raster_from_tables(runs: torch.Tensor, col_rows: torch.Tensor,
+                       reverse: torch.Tensor, *,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """raster_tables' runs [N,S,227,2] and col_rows [N,227] + reverse [N,S]
+    -> {0,1} raster [N,227,227,3] (NHWC), as K1 expands them: a pixel is
+    lit in channel 0 where a segment's run holds its column, in channel 2
+    where a reverse segment's does, and in channel 1 where channel 0 is
+    and its column has at least two lit rows."""
+    c = torch.arange(CANVAS, dtype=torch.int32, device=runs.device)
+    plane = (c >= runs[..., 0:1]) & (c <= runs[..., 1:2])    # [N,S,R,C]
+    ch0 = plane.any(dim=1)
+    ch2 = (plane & reverse.bool()[..., None, None]).any(dim=1)
+    ch1 = ch0 & (col_rows[:, None, :] >= 2)
+    return torch.stack([ch0, ch1, ch2], dim=-1).to(dtype)
+
+
 def render_raster_s2d(endpoints: torch.Tensor, visible: torch.Tensor,
                       reverse: torch.Tensor, *, dtype=torch.bfloat16) -> torch.Tensor:
     """The raster emitted directly in conv1's space-to-depth layout:

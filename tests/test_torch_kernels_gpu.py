@@ -72,6 +72,99 @@ def test_raster_kernel_four_segments(cuda, dtype):
         assert torch.equal(got, rasterize.render_raster(*seg, dtype=dtype))
 
 
+def _k1_inputs(dev, n, segs, case="random"):
+    """K1's inputs, n images of segs segments each:
+    - 'random': _batch's candidates (SPECS in front), their first segment
+      alone at S = 1, and at S = 3-4 random extra segments, every other
+      image's inside a 24-pixel corner so that the runs overlap;
+    - 'degenerate': SPECS (points, a vertical and a horizontal line, full
+      diagonals, clipped lines, the sentinel pad row), then the same
+      segments in the other order as segments 3-4;
+    - 'all-dark': random endpoints, every segment invisible;
+    - 'every-row': y-major lines from row 0 to row 226, so every row of
+      every band holds a run."""
+    rng = np.random.RandomState(100 * n + segs)
+    if case == "every-row":
+        c = rng.randint(0, rasterize.CANVAS, (n, segs, 2))
+        ep = np.stack([c[..., 0], np.zeros_like(c[..., 0]), c[..., 1],
+                       np.full_like(c[..., 0], rasterize.CANVAS - 1)], -1)
+        flags = (np.ones((n, segs), bool), rng.rand(n, segs) < 0.5)
+        return [torch.from_numpy(a).to(dev)
+                for a in (ep.astype(np.int32),) + flags]
+    if case == "all-dark":
+        ep = rng.randint(0, rasterize.CANVAS, (n, segs, 4)).astype(np.int32)
+        off = np.zeros((n, segs), bool)
+        return [torch.from_numpy(a).to(dev) for a in (ep, off, ~off)]
+    ep, vis, rev = _segments(dev) if case == "degenerate" else _batch(dev, n)
+    if case == "degenerate":
+        ep, vis, rev = (torch.cat([t, t.flip(1)], dim=1) for t in (ep, vis, rev))
+    elif segs > 2:
+        hi = np.where(np.arange(n) % 2 == 0, 24, rasterize.CANVAS)[:, None, None]
+        extra = (rng.randint(0, 1 << 20, (n, segs - 2, 4)) % hi).astype(np.int32)
+        ep = torch.cat([ep, torch.from_numpy(extra).to(dev)], dim=1)
+        vis = torch.cat([vis, torch.from_numpy(
+            rng.rand(n, segs - 2) < 0.75).to(dev)], dim=1)
+        rev = torch.cat([rev, torch.from_numpy(
+            rng.rand(n, segs - 2) < 0.5).to(dev)], dim=1)
+    return [t[:, :segs].contiguous() for t in (ep, vis, rev)]
+
+
+def _check_k1(seg, dtype):
+    """One launch, and the plain raster's bits."""
+    before = raster_kernel.render_raster.launches
+    got = raster_kernel.render_raster(*seg, dtype=dtype)
+    assert raster_kernel.render_raster.launches == before + 1
+    want = rasterize.render_raster(*seg, dtype=dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 3, 127, 128, 129])
+@pytest.mark.parametrize("segs", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raster_kernel_batches(cuda, dtype, segs, n):
+    """K1 at every segment count and at batches whose image bases fall at
+    every 16-byte phase (an image holds 154,587 values) and whose bands
+    fill the grid unevenly: bit-equal to the plain raster."""
+    _check_k1(_k1_inputs(cuda, n, segs), dtype)
+
+
+@pytest.mark.parametrize("case", ["degenerate", "all-dark", "every-row"])
+@pytest.mark.parametrize("segs", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raster_kernel_cases(cuda, dtype, segs, case):
+    """Degenerate lines, nothing lit (exactly zero) and every row lit
+    (no dark row to skip), bit-equal to the plain raster."""
+    seg = _k1_inputs(cuda, len(SPECS) if case == "degenerate" else 37, segs,
+                    case)
+    got = _check_k1(seg, dtype)
+    if case == "all-dark":
+        assert got.count_nonzero().item() == 0
+    if case == "every-row":
+        assert got[..., 0].amax(dim=2).bool().all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raster_kernel_graph_replay(cuda, dtype):
+    """K1 alone in a CUDA graph: each replay equals the eager call on what
+    the static inputs hold then, and counts one launch."""
+    from svision_tpu_torch import graphs
+    first = _k1_inputs(cuda, 128, 2)
+    static = [t.clone() for t in first]
+    _check_k1(static, dtype)        # builds and loads before the capture
+    g = graphs.capture(
+        lambda: raster_kernel.render_raster(*static, dtype=dtype), cuda)
+    assert g.launches == ((raster_kernel.render_raster, 1),)
+    for seg in (first, _k1_inputs(cuda, 128, 2, "every-row")):
+        for t, src in zip(static, seg):
+            t.copy_(src)
+        before = raster_kernel.render_raster.launches
+        got = g.replay()
+        assert raster_kernel.render_raster.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, raster_kernel.render_raster(*seg, dtype=dtype))
+
+
 def _check_pool_lrn(dev, n, h, w, c, dtype, bias_dtype):
     """One launch per call; bf16 bit-equal to the plain version (f32
     inside, the same operation order, one rounding), f32 within 1e-5
