@@ -50,10 +50,18 @@ Phases, each of which fails the run with a non-zero exit on any check:
      eager step, its launches per batch x batches, against an all-plain
      engine, the three rasters of one network against each other bit for
      bit, each mode against phase 3's engines, images/s graphed and eager,
-     and the graph memory; then profile the 'pallas' engines.
+     and the graph memory; then profile the 'pallas' engines;
+  9. run the port's tools: bench_torch.py at 64 batches (its line
+     parsed), scripts/torch_e2e_bench.py at 1 x 1 Mb (its VCF
+     truvari-scored against itself, f1 1.0), scripts/torch_roofline.py
+     at batch 128, the graft entry's fused step (__graft_entry_torch__)
+     against its CPU run (at the bf16 bar on the bar's weights; on its
+     default weights the f32 network on both, and the card's bf16 within
+     the CPU's own bf16-to-f32 departure), and dryrun_multichip(1).
 Launches count kernels executed: a graph replay adds the launches its
 capture held (svision_tpu_torch/graphs.py), and every run of phases 3-8
-holds them to launches per batch or step x the batches or steps run.
+holds them to launches per batch or step x the batches or steps run (in
+phase 9, the engine's runs; the others' are counted).
 Then it prints one {"kernels": [...]} line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 `--report PATH` also writes the full report (every variant, the profile) as
@@ -74,6 +82,10 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from svision_tpu_torch.timing import (  # noqa: E402
+    device_time, held_queue, nvidia_smi, on_device, random_specs, time_ms)
+
 B = 128                      # the engine's batch
 # back-to-back calls of a plain version of K1 or K3, which launches tens of
 # ops a call: 20 calls of them outlast the device sleep of held_queue
@@ -89,34 +101,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-
-
-def random_specs(n: int, seed: int = 0) -> np.ndarray:
-    """bench.random_specs: candidate specs with mixed scales and strands."""
-    rng = np.random.RandomState(seed)
-    specs = np.zeros((n, 12), dtype=np.int64)
-    scale = rng.choice([1, 2, 8, 40], size=n)
-    read_len = (227 * scale * rng.uniform(0.5, 1.0, n)).astype(np.int64) + 100
-    ref_len = (227 * scale * rng.uniform(0.5, 1.0, n)).astype(np.int64) + 100
-    for k, base in ((0, read_len), (5, read_len)):
-        specs[:, k] = rng.randint(0, 1000, n) % np.maximum(base // 2, 1)
-    for k, base in ((2, ref_len), (7, ref_len)):
-        lo = rng.randint(0, 1000, n) % np.maximum(base // 2, 1)
-        specs[:, k] = lo
-        specs[:, k + 1] = lo + np.maximum(
-            (base * rng.uniform(0.2, 0.9, n)).astype(np.int64), 2)
-    specs[:, 4] = 1
-    specs[:, 9] = rng.randint(0, 2, n)
-    specs[:, 10] = read_len
-    specs[:, 11] = ref_len
-    return specs
-
-
 DEGENERATE = [
     [0, 0, 5, 6, 1, 10, 10, 10, 11, 1, 227, 227],     # two points
     [3, 3, 0, 227, 1, 0, 200, 7, 8, 1, 227, 227],     # vert + horiz
@@ -124,46 +108,6 @@ DEGENERATE = [
     [0, 300, 200, 500, 1, 0, 5, 0, 6, 1, 300, 500],   # clipped
     [0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2],             # sentinel pad row
 ]
-
-
-@contextlib.contextmanager
-def held_queue(sleep_cycles: int = 500_000_000):
-    """Enqueue the block's work behind a device sleep. A kernel shorter
-    than the host's time to enqueue it would otherwise find the queue
-    empty, and its events would time the host. Fails if the host took
-    longer to enqueue than the device slept. Yields a dict that gets
-    host_ms, the time the host took to enqueue."""
-    import torch
-    torch.cuda.synchronize()
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    torch.cuda._sleep(sleep_cycles)
-    b.record()
-    info = {}
-    t0 = time.perf_counter()
-    yield info
-    info["host_ms"] = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    slept = a.elapsed_time(b)
-    assert info["host_ms"] < slept, (
-        f"the host enqueued for {info['host_ms']:.1f} ms, longer than the "
-        f"device slept ({slept:.1f} ms): the times would include host gaps")
-
-
-def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() in ms over reps launches run back to back
-    (CUDA events, the queue held), after two warm-up calls."""
-    import torch
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with held_queue():
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-    return start.elapsed_time(end) / reps
 
 
 def spread_ms(fns, reps: int = 50) -> dict:
@@ -665,43 +609,6 @@ def check_engine(params) -> dict:
         log(f"engine {mode} ({REPORT['device']['nvidia_smi']}): {out[mode]}")
         torch.cuda.empty_cache()
     return out
-
-
-def on_device(e) -> bool:
-    """A profiler event that is a kernel or copy on the device. A user
-    annotation's span on the device track (Optimizer.step#SGD.step) is
-    none; a kernel whose name holds a lambda (torch's elementwise and copy
-    kernels: "...::{lambda()#1}...") is one."""
-    from torch.autograd import DeviceType
-    return (e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and ("#" not in e.key or "{lambda(" in e.key))
-
-
-def device_time(prof, wall_ms: float, what: str):
-    """({kernel: device ms}, device busy ms) of a torch.profiler run: busy
-    is the union of the traced kernels' and copies' intervals (copies
-    overlap kernels, so the sum of their times may exceed the wall)."""
-    per_kernel = {}
-    for e in prof.key_averages():
-        if not on_device(e):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if on_device(e))
-    assert spans, f"{what}: no device activity traced"
-    busy_us, last = 0.0, float("-inf")
-    for start, end in spans:
-        if end > last:
-            busy_us += end - max(start, last)
-            last = end
-    busy_ms = busy_us / 1e3
-    assert busy_ms <= wall_ms, (
-        f"{what}: {busy_ms} ms on the device > {wall_ms} ms wall")
-    return per_kernel, busy_ms
 
 
 def profile_engine(params, modes=(("bf16", {}), ("exact", dict(bf16=False))),
@@ -1797,10 +1704,177 @@ def check_training(params, fx: dict, work: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the benchmark, accuracy and profiling tools, the graft entry
+# ---------------------------------------------------------------------------
+
+def agreement(p, s, want_p, want_s) -> dict:
+    """Argmax agreement of two runs, and the max and median difference of
+    their selected softmax."""
+    d = np.abs(s - want_s)
+    return dict(argmax_agreement=float((p == want_p).mean()),
+                max_softmax_err=float(d.max()),
+                median_softmax_err=float(np.median(d)))
+
+
+def bar_weights() -> dict:
+    """The weights tests/test_torch_engine_modes.py sets its bf16 bar on:
+    init_params(0) at half scale with small random biases (at full scale
+    bf16 rounding moves the softmax of a near tie by more than the bar)."""
+    from svision_tpu_torch.models.alexnet import init_params
+    rng = np.random.RandomState(0)
+    return {k: (v * np.float32(0.5) if k.endswith("weights")
+                else v + rng.normal(0, 0.05, v.shape).astype(np.float32))
+            for k, v in init_params(0).items()}
+
+
+def entry_f32_witness(args, args_c, s, s_c) -> dict:
+    """entry()'s default weights (init_params(0) at full scale) give logits
+    near 100, so bf16 rounding moves a near tie's max softmax by more than
+    the bf16 bar. The witness: the same images (K1 on the card, its plain
+    version on the CPU) through the f32 network (TF32 off) on both, held
+    to argmax equality and 1e-3 in max softmax; and the card's bf16 max
+    softmax (s) no farther from the CPU's (s_c) than the CPU's bf16 is
+    from its own f32. Reports the worst spec's top-2 logit gap."""
+    import torch
+    from svision_tpu_torch.infer.engine import exact_f32
+    from svision_tpu_torch.models.alexnet import AlexNet, init_params
+    from svision_tpu_torch.ops.raster_kernel import render_images
+    logits = []
+    for a in (args, args_c):
+        _, ep, vis, rev = a
+        model = AlexNet.from_params(init_params(0), device=ep.device)
+        with torch.inference_mode(), exact_f32():
+            logits.append(model(render_images(
+                ep, vis, rev, dtype=torch.float32)).cpu())
+    (p32, s32), (p32_c, s32_c) = (
+        (x.argmax(dim=1).numpy(), torch.softmax(x, dim=1).amax(dim=1).numpy())
+        for x in logits)
+    f32 = agreement(p32, s32, p32_c, s32_c)
+    top2 = torch.topk(logits[1], 2, dim=1).values.numpy()
+    worst = int(np.argmax(np.abs(s - s_c)))
+    out = dict(f32_card_vs_cpu=f32,
+               cpu_bf16_vs_f32_max=float(np.abs(s_c - s32_c).max()),
+               card_bf16_vs_f32_max=float(np.abs(s - s32).max()),
+               max_abs_logit=float(logits[1].abs().max()),
+               worst_spec=dict(index=worst,
+                               top2_logit_gap=float(top2[worst, 0]
+                                                    - top2[worst, 1]),
+                               card_bf16=float(s[worst]),
+                               cpu_bf16=float(s_c[worst]),
+                               card_f32=float(s32[worst]),
+                               cpu_f32=float(s32_c[worst])))
+    assert f32["argmax_agreement"] == 1.0 and f32["max_softmax_err"] <= 1e-3, out
+    assert float(np.abs(s - s_c).max()) <= out["cpu_bf16_vs_f32_max"], out
+    return out
+
+
+def check_tools(work: str) -> dict:
+    """Phase 9: the port's tools on the card, each run's launches counted:
+    bench_torch.py at 64 batches (its line parsed); torch_e2e_bench.py at
+    1 x 1 Mb (its report printed, its VCF truvari-scored against itself:
+    f1 must be 1.0); torch_roofline.py at batch 128 (every prefix's time
+    > 0, every section's after K3 too, and the FLOPs per image); the
+    graft entry's fused step against its CPU run: at the bf16 bar on
+    bar_weights(), and on its default weights through entry_f32_witness;
+    and dryrun_multichip(1)."""
+    import importlib
+    import io
+    sys.path.append(os.path.join(ROOT, "scripts"))
+    import bench_torch
+    import torch_e2e_bench
+    import torch_roofline
+    from svision_tpu_torch.truvari import bench as truvari_bench
+    graft = importlib.import_module("__graft_entry_torch__")
+    smi = REPORT["device"]["nvidia_smi"]
+    out, runs, seconds = {}, {}, {}
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with counted() as r, contextlib.redirect_stdout(buf):
+        line = bench_torch.main(["--batches", "64"])
+    printed = buf.getvalue()
+    log(printed.strip())
+    assert json.loads(printed.strip().splitlines()[-1]) == line, printed
+    assert line["metric"].startswith("similarity_images_per_s_gpu") \
+        and line["value"] > 0 and line["device"] == smi, line
+    hold_launches("bench_torch", "default", r, warmups=warmup_batches())
+    out["bench"], runs["tools_bench"] = line, r
+    seconds["bench"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with counted() as r:
+        rep = torch_e2e_bench.main(["--chroms", "1", "--mb", "1", "--keep",
+                                    os.path.join(work, "e2e")])
+    hold_launches("torch_e2e_bench", "default", r,
+                  warmups=warmup_batches(), devices=mesh_devices())
+    self_score = truvari_bench(rep["vcf"], rep["vcf"], sizefilt=50)
+    assert self_score["base_cnt"] == self_score["comp_cnt"] > 0 \
+        and self_score["f1"] == 1.0, self_score
+    log(f"e2e VCF against itself: {self_score['comp_cnt']} calls, "
+        f"f1 {self_score['f1']}")
+    out["e2e"], runs["tools_e2e"] = dict(rep, truvari_self=self_score), r
+    seconds["e2e"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with counted() as r:
+        roof = torch_roofline.main(["--batch", str(B)])
+    secs = roof["sections"]
+    assert all(x["cum_ms"] > 0 for x in secs) and all(
+        x["section_ms"] > 0 for x in secs[2:]), secs
+    assert roof["flops_per_image"] == torch_roofline.stage_flops(
+        len(torch_roofline.STAGES) - 1)
+    # the default engine's kernels, in the prefixes' replays
+    assert all(r["launches"][k] > 0 for k, v in PER_BATCH["default"].items()
+               if v), r["launches"]
+    log(f"roofline at batch {B}: {roof['flops_per_image']} FLOPs an image")
+    out["roofline"], runs["tools_roofline"] = roof, r
+    seconds["roofline"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["entry"] = {}
+    for weights, params in (("default", None), ("bar", bar_weights())):
+        with counted() as r:
+            fn, args = graft.entry(params=params)
+            p, s = (o.cpu().numpy() for o in fn(*args))
+        # one batch of the engine's fast=False step
+        assert r["launches"] == PER_BATCH["unfolded_bf16"], r["launches"]
+        runs[f"tools_entry_{weights}"] = r
+        fn_c, args_c = graft.entry("cpu", params=params)
+        p_c, s_c = (o.numpy() for o in fn_c(*args_c))
+        assert p.shape == s.shape == (16,) and np.isfinite(s).all()
+        out["entry"][weights] = agreement(p, s, p_c, s_c)
+        if weights == "default":
+            out["entry"]["default_f32"] = entry_f32_witness(
+                args, args_c, s, s_c)
+    log(f"entry(): card vs CPU {out['entry']}")
+    # tests/test_torch_engine_modes.py's bf16 bar, on the weights it was
+    # set on; on the default weights the f32 witness is held instead
+    bar = out["entry"]["bar"]
+    assert (bar["argmax_agreement"] >= 0.9 and bar["max_softmax_err"] <= 0.02
+            and bar["median_softmax_err"] <= 0.004), bar
+    seconds["entry"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with counted() as r:
+        graft.dryrun_multichip(1)
+    # the exact and the default engines' kernels
+    assert all(r["launches"][k] > 0 for k in r["launches"]
+               if PER_BATCH["exact"][k] or PER_BATCH["default"][k]), \
+        r["launches"]
+    runs["tools_dryrun"] = r
+    log(f"dryrun_multichip(1) ok, launches {r['launches']}")
+    seconds["dryrun"] = time.perf_counter() - t0
+
+    out["runs"], out["seconds"] = runs, seconds
+    log(f"phase 9 seconds by check: {seconds}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     """The kernels line: each kernel's launches in every main-path run of
-    phases 3-8 (runs: name -> {"launches", "batches"}, and "k1_dtype" where
+    phases 3-9 (runs: name -> {"launches", "batches"}, and "k1_dtype" where
     K1 renders bf16), its error against its plain version, and its times
     and bound at the main path's dtype. K1 has a row per dtype: f32 on the
     exact path, bf16 on the 'pallas' engines of phase 8."""
@@ -1924,6 +1998,10 @@ def main(argv=None) -> int:
     REPORT["modes"] = check_modes(params)
     log(f"phase 8: the engine's other modes ok "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        REPORT["tools"] = check_tools(work)
+    log(f"phase 9: the tools ok ({time.perf_counter() - t0:.1f} s)")
     REPORT["total_s"] = time.perf_counter() - t_all
     log(f"chip_smoke: {REPORT['total_s']:.1f} s in all")
 
@@ -1933,6 +2011,7 @@ def main(argv=None) -> int:
     runs.update(REPORT["shards"]["runs"])
     runs.update(REPORT["train"]["runs"])
     runs.update({f"engine_{k}": REPORT["modes"][k] for k in MODES})
+    runs.update(REPORT["tools"]["runs"])
     line = kernel_line(REPORT["kernels"], runs, build)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -26,7 +26,7 @@ Class ids: 0=DEL 1=INS 2=INV 3=DUP 4=tDUP (predict.py:133-142).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -306,16 +306,45 @@ class AlexNet(nn.Module):
         fold's f32 rounding."""
         return self.forward(space_to_depth(raster.to(self.compute_dtype)))
 
-    def forward_conv1(self, pre: torch.Tensor) -> torch.Tensor:
+    # forward_conv1's stages in order, each by the layers whose weights it
+    # holds (scripts/torch_roofline.py times their prefixes)
+    STAGE_LAYERS = (("conv1",), ("conv2",), ("conv3",), ("conv4",),
+                    ("conv5",), ("fc6", "fc7", "fc8"))
+
+    def stages(self):
+        """forward_conv1's stages, one per STAGE_LAYERS entry, in order:
+        each takes the previous stage's output."""
+        return (self._conv1_block, self._conv2_block, self._conv3,
+                self._conv4, self._conv5_pool, self._head)
+
+    def forward_conv1(self, pre: torch.Tensor,
+                      n_stages: Optional[int] = None) -> torch.Tensor:
         """Logits from conv1's pre-activation, NHWC [N,55,55,96] (what the
-        fused raster+conv1 kernel emits): the rest of the network."""
-        h = bias_relu_pool_lrn(pre, self.conv1.bias)            # [N,27,27,96]
+        fused raster+conv1 kernel emits): the rest of the network; or,
+        given n_stages, the output of its first n_stages stages."""
+        h = pre
+        for stage in self.stages()[:n_stages]:
+            h = stage(h)
+        return h
+
+    def _conv1_block(self, pre):
+        return bias_relu_pool_lrn(pre, self.conv1.bias)         # [N,27,27,96]
+
+    def _conv2_block(self, h):
         h = self._conv(self.conv2, h.permute(0, 3, 1, 2), bias=False)
         h = bias_relu_pool_lrn(h.permute(0, 2, 3, 1), self.conv2.bias)
-        h = h.permute(0, 3, 1, 2)                               # [N,256,13,13]
-        h = torch.relu(self._conv(self.conv3, h))
-        h = torch.relu(self._conv(self.conv4, h))
-        h = F.max_pool2d(torch.relu(self._conv(self.conv5, h)), 3, 2)
+        return h.permute(0, 3, 1, 2)                            # [N,256,13,13]
+
+    def _conv3(self, h):
+        return torch.relu(self._conv(self.conv3, h))
+
+    def _conv4(self, h):
+        return torch.relu(self._conv(self.conv4, h))
+
+    def _conv5_pool(self, h):
+        return F.max_pool2d(torch.relu(self._conv(self.conv5, h)), 3, 2)
+
+    def _head(self, h):
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)       # NHWC flatten
         h = torch.relu(self.fc6(h))
         h = torch.relu(self.fc7(h))

@@ -258,11 +258,14 @@ def run_distributed(options) -> Optional[str]:
     return merge_all(options, chrom_order)
 
 
-def run_shard(options, shard_id: int, num_shards: int) -> List[str]:
+def run_shard(options, shard_id: int, num_shards: int,
+              engine=None) -> List[str]:
     """Collection + prediction for this shard's chromosomes on
     options.device (and the --mesh devices); returns the chrom list
     handled. Fragments land in the shared predict_results dir under the
-    same names the merger expects."""
+    same names the merger expects. `engine` is an optional caller-owned,
+    already warm InferenceEngine (as run_pipeline takes one); by default
+    one is built from -m and warmed up while collection runs."""
     from svision_tpu_torch.cli import build_task_list
     from svision_tpu_torch.collect.window import run_detect
     from svision_tpu_torch.infer.aggregate import predict_chromosome
@@ -274,15 +277,17 @@ def run_shard(options, shard_id: int, num_shards: int) -> List[str]:
 
     # the engine first: a shard without its device fails before it writes
     # anything, and the warm-up overlaps the task list
-    params = load_params(options.model_path)
-    mesh = resolve_mesh(options.mesh, options.device)
-    if mesh is not None:
-        logging.info("shard %d inference mesh: %d devices (data-parallel)",
-                     shard_id, len(mesh))
-    engine = InferenceEngine(params, batch_size=options.batch_size,
-                             bf16=options.bf16, device=options.device,
-                             devices=mesh)
-    warmup_thread = engine.warmup_async()
+    warmup_thread = None
+    if engine is None:
+        params = load_params(options.model_path)
+        mesh = resolve_mesh(options.mesh, options.device)
+        if mesh is not None:
+            logging.info("shard %d inference mesh: %d devices "
+                         "(data-parallel)", shard_id, len(mesh))
+        engine = InferenceEngine(params, batch_size=options.batch_size,
+                                 bf16=options.bf16, device=options.device,
+                                 devices=mesh)
+        warmup_thread = engine.warmup_async()
 
     bam = BamReader(options.bam_path)
     ref = FastaFile(options.genome)

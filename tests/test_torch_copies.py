@@ -18,7 +18,7 @@ COPIED_FILES = ["config.py", "noise.py", "sim.py", "models/checkpoint.py",
                 "ops/__init__.py", "ops/bresenham.py", "ops/dotplot.py",
                 "utils/__init__.py", "utils/metrics.py", "utils/hostpool.py",
                 "infer/__init__.py", "parallel/__init__.py",
-                "models/dataset.py", "evaluate.py"]
+                "models/dataset.py", "evaluate.py", "truvari.py"]
 
 
 def _sources(pkg, d):

@@ -29,11 +29,22 @@ def test_imports_with_jax_absent():
             "svision_tpu_torch.parallel.mesh, svision_tpu_torch.parallel.dist, "
             "svision_tpu_torch.parallel.cohort, svision_tpu_torch.models.train, "
             "svision_tpu_torch.models.dataset, svision_tpu_torch.evaluate, "
-            "svision_tpu_torch.graphs, svision_tpu_torch.device; "
+            "svision_tpu_torch.graphs, svision_tpu_torch.device, "
+            "svision_tpu_torch.truvari; "
             "assert not any(m == 'svision_tpu' or m.startswith('svision_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+SCRIPTS = os.path.join(ROOT, "scripts")
+# the port's files outside its package
+ROOT_FILES = ("chip_smoke.py", "bench_torch.py", "__graft_entry_torch__.py")
+
+
+def _port_scripts():
+    return sorted(f[:-3] for f in os.listdir(SCRIPTS)
+                  if f.startswith("torch_") and f.endswith(".py"))
 
 
 def _python_files():
@@ -41,11 +52,10 @@ def _python_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
-    scripts = os.path.join(ROOT, "scripts")
-    for f in sorted(os.listdir(scripts)):
-        if f.startswith("torch_") and f.endswith(".py"):
-            yield os.path.join(scripts, f)
+    for f in ROOT_FILES:
+        yield os.path.join(ROOT, f)
+    for name in _port_scripts():
+        yield os.path.join(SCRIPTS, name + ".py")
 
 
 def _imported_modules(path):
@@ -59,13 +69,34 @@ def _imported_modules(path):
 
 
 def test_no_jax_or_reference_package_imports():
+    """Nor of the JAX package's root files (bench.py, __graft_entry__.py)
+    or scripts."""
+    jax_scripts = {f[:-3] for f in os.listdir(SCRIPTS)
+                   if f.endswith(".py") and not f.startswith("torch_")}
+    banned = {"jax", "jaxlib", "ml_dtypes", "svision_tpu", "bench",
+              "__graft_entry__"} | jax_scripts
     bad = []
     for path in _python_files():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "ml_dtypes", "svision_tpu"):
+            if top in banned:
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, bad
+
+
+def test_tools_import_with_jax_absent():
+    """The port's root files and scripts import with jax absent, and
+    bring in nothing of the JAX package or its root files."""
+    mods = [f[:-3] for f in ROOT_FILES] + _port_scripts()
+    code = ("import sys, importlib; sys.modules['jax'] = None; "
+            "sys.modules['ml_dtypes'] = None; "
+            f"sys.path[:0] = [{ROOT!r}, {SCRIPTS!r}]; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('svision_tpu', 'bench', '__graft_entry__')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
 
 
 def test_engine_without_gpu_raises(monkeypatch):
