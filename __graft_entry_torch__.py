@@ -81,7 +81,9 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     """Validate every multi-device path on n devices at tiny shapes:
       1. the full training step, data parallel x tensor parallel on
          fc6/fc7 (make_mesh_train_step on make_train_mesh(data, model),
-         model axis 2 when n is even), with a finite loss;
+         model axis 2 when n is even), graphs.WARMUP_STEPS + 2 steps, so
+         that on the card its CUDA graphs are captured and replayed, each
+         with a finite loss;
       2. data-parallel inference (ShardedInference: batch rows split over
          the devices) equal to the one-device engine, on the exact f32
          path and the bf16 s2d production path;
@@ -95,6 +97,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     import tempfile
 
     import torch
+    from svision_tpu_torch.graphs import WARMUP_STEPS
     from svision_tpu_torch.models.alexnet import init_params
     from svision_tpu_torch.models.checkpoint import save_params
     from svision_tpu_torch.models.train import make_mesh_train_step
@@ -116,8 +119,9 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     labels = torch.zeros((batch,), dtype=torch.int64, device=dev0)
     gens = {d: torch.Generator(device=d).manual_seed(1)
             for row in grid for d in row}
-    loss = float(train_step(images, labels, gens))
-    assert np.isfinite(loss), loss
+    losses = [float(train_step(images, labels, gens))
+              for _ in range(WARMUP_STEPS + 2)]
+    assert np.isfinite(losses).all(), losses
 
     _dryrun_sharded_inference(n_devices, device, params)
     with tempfile.TemporaryDirectory(prefix="svtorch_dryrun_w_") as root:

@@ -41,9 +41,13 @@ Phases, each of which fails the run with a non-zero exit on any check:
      draw new dropout masks; eight bf16 steps with a falling loss; training
      images/s of fit and fit_device (graphed), the image path with
      fragmented segments too; the bf16 s2d fit_device step profiled,
-     graphed and eager; the DP x TP step where two GPUs are visible; and a
-     mini closed loop (build_dataset, fit_device, evaluate) whose weights
-     go through phase 4's CLI;
+     graphed and eager; the DP x TP step in f64 against one device (over
+     the visible GPUs, or a 2 x 2 grid of one GPU's replicas); the DP x TP
+     step's CUDA graphs against eager twins, with new dropout masks, the
+     host's calls a step and fit(mesh=)'s launches, on one GPU's replicas
+     and on four GPUs where visible; and a mini closed loop
+     (build_dataset, fit_device, evaluate) whose weights go through phase
+     4's CLI;
   8. run the engine's other modes (raster='compare', 'einsum' and 'pallas'
      in bf16 and int8, and the unfolded bf16 network, fast=False) on phase
      3's 8,192 specs: each mode's graph replays bit for bit against its
@@ -1241,6 +1245,7 @@ def check_shards(fx: dict, work: str, solo: dict) -> dict:
 
 GPU = "cuda"                 # phase 7's device
 TRAIN_B = 64                 # the training batch of the rates and profile
+MESH_B = 32                  # the DP x TP graph check's global batch
 RATE_STEPS = 12              # steps per epoch of each rate run
 
 # launches per step of each training run, and per batch of evaluate
@@ -1253,6 +1258,8 @@ PER_STEP = {
                                "conv1_fused_raster": 0},
     "fit_device_s2d": {"render_raster": 0, "bias_relu_pool_lrn": 0,
                        "conv1_fused_raster": 0},
+    "fit_mesh": {"render_raster": 1, "bias_relu_pool_lrn": 0,
+                 "conv1_fused_raster": 0},
     "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
                  "conv1_fused_raster": 0}}
 
@@ -1589,13 +1596,173 @@ def profile_train_step(params) -> dict:
     return out
 
 
+def replica_grid():
+    """A 2 x 2 training grid whose four cells are all the first GPU."""
+    import torch
+    dev = torch.device(GPU, 0)
+    return ((dev, dev), (dev, dev))
+
+
+def train_grids() -> dict:
+    """The DP x TP grids phase 7 runs: four cells of one GPU, and four
+    GPUs when four are visible."""
+    import torch
+    from svision_tpu_torch.parallel import mesh as M
+    grids = {"cuda0_x4": replica_grid()}
+    if torch.cuda.device_count() >= 4:
+        grids["gpus_2x2"] = M.make_train_mesh(2, 2, device=GPU)
+    return grids
+
+
+def mesh_twin(cells, optimizers, make):
+    """A second DP x TP trainer in the state of (cells, optimizers): the
+    same parameters and momentum buffers; make(cells) -> (optimizers,
+    step) builds its step."""
+    twin = tuple(tuple({k: t.detach().clone().requires_grad_(True)
+                        for k, t in cell.items()} for cell in row)
+                 for row in cells)
+    twin_opts, step = make(twin)
+    for c, opt in optimizers.items():
+        for p, q in zip(opt.param_groups[0]["params"],
+                        twin_opts[c].param_groups[0]["params"]):
+            twin_opts[c].state[q]["momentum_buffer"] = \
+                opt.state[p]["momentum_buffer"].clone()
+    return twin, step
+
+
+def host_calls(fn, sync=None) -> dict:
+    """One call of fn profiled (torch.profiler): the CUDA API calls the
+    host made, by name, and their total. sync() waits for the devices fn
+    uses (default: the current one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync = sync or torch.cuda.synchronize
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith("cu") and "Synchronize" not in e.key}
+    return {"total": sum(calls.values()), "by_name": calls}
+
+
+def check_mesh_graph_steps(params) -> dict:
+    """The DP x TP step (make_mesh_train_step, 2 x 2, fc6/fc7 split) as
+    CUDA graphs, on four cells of one GPU and, when four are visible, on
+    four GPUs. As check_graph_steps: graphs.WARMUP_STEPS eager steps (f32,
+    batch MESH_B, clip 1, lr 5e-3, keep_prob 1), then the first replay against
+    two eager twins (eager=True) from the same parameters and momentum:
+    the loss within 1e-6 relative and every parameter within 1e-6 of its
+    largest entry, beside the twins' own spread; replays at keep_prob 0.5
+    on one batch with lr 0 draw new masks (every loss differs); fit(mesh=)
+    over WARMUP_STEPS + 2 steps holds its launches to PER_STEP["fit_mesh"];
+    and, on one GPU, the host's CUDA calls and wall ms per step, eager and
+    replayed."""
+    import torch
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.parallel import mesh as M
+    steps = graphs.WARMUP_STEPS + 1
+    b = MESH_B
+    specs, labels = labeled(b * (steps + 1), seed=14)
+    out = {}
+    for name, grid in train_grids().items():
+        dev0 = grid[0][0]
+        images = train.specs_to_images(specs, device=dev0)
+        y = torch.from_numpy(labels).long().to(dev0)
+        gens = {d: torch.Generator(device=d).manual_seed(0)
+                for row in grid for d in row}
+
+        def trainer(cells, eager=False, **kw):
+            return train.make_mesh_train_step(
+                cells, **{**dict(learning_rate=5e-3, clip_norm=1.0,
+                                 keep_prob=1.0, eager=eager), **kw})
+
+        def batch(i):
+            return images[b * i:b * (i + 1)], y[b * i:b * (i + 1)], gens
+
+        cells = M.shard_params_tp(params, grid)
+        opts, step = trainer(cells)
+        for i in range(graphs.WARMUP_STEPS):
+            step(*batch(i))
+        twins = [mesh_twin(cells, opts, lambda c: trainer(c, eager=True))
+                 for _ in range(2)]
+        assert not any(t.pieces.graphed for _, t in twins)
+        last = steps - 1
+        lg = float(step(*batch(last)))
+        # fwd and bwd on each of 4 cells, a head a row, reduce on the two
+        # owners (cells (0, 0) and (0, 1)), update on each cell
+        pieces = step.pieces
+        assert len(pieces.graphs) == 16 and pieces.replaying, \
+            f"mesh {name}: {len(pieces.graphs)} graphs"
+        le = [float(tstep(*batch(last))) for _, tstep in twins]
+        pg = M.gather_params(cells)
+        pe = [M.gather_params(t) for t, _ in twins]
+
+        def rel(a, b):
+            return {k: float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max())
+                    for k in b}
+        err, twin_err = rel(pg, pe[0]), rel(pe[1], pe[0])
+        r = dict(graphed_loss=lg, eager_losses=le,
+                 loss_rel_err=abs(lg - le[0]) / abs(le[0]),
+                 bit_equal=lg == le[0] and all(
+                     np.array_equal(pg[k], pe[0][k]) for k in pg),
+                 param_rel_err=err, eager_twins_param_rel_err=twin_err,
+                 graphs=len(pieces.graphs))
+        assert r["loss_rel_err"] <= 1e-6, f"mesh {name}: {lg} vs {le}"
+        assert max(err.values()) <= 1e-6, f"mesh {name}: parameters {err}"
+        log(f"graphed DP x TP step on {name}: loss {lg} (eager {le}), "
+            f"bit-equal {r['bit_equal']}, worst parameter rel err "
+            f"{max(err.values()):.3g} (eager vs eager "
+            f"{max(twin_err.values()):.3g})")
+        if name == "cuda0_x4":
+            twin_step = twins[0][1]
+            r["host_calls_eager"] = host_calls(lambda: twin_step(*batch(0)))
+            r["host_calls_graphed"] = host_calls(lambda: step(*batch(0)))
+            r["step_wall_ms_eager"] = host_clock_ms(
+                lambda: twin_step(*batch(0)))
+            r["step_wall_ms_graphed"] = host_clock_ms(lambda: step(*batch(0)))
+            log(f"DP x TP step on {name}, host CUDA calls a step: eager "
+                f"{r['host_calls_eager']['total']}, graphed "
+                f"{r['host_calls_graphed']['total']}; wall "
+                f"{r['step_wall_ms_eager']:.3f} / "
+                f"{r['step_wall_ms_graphed']:.3f} ms")
+        del cells, opts, step, twins, pieces
+
+        cells = M.shard_params_tp(params, grid)
+        _, step = trainer(cells, learning_rate=0.0, keep_prob=0.5)
+        losses = [float(step(*batch(0)))
+                  for _ in range(graphs.WARMUP_STEPS + 3)]
+        assert len(set(losses)) == len(losses), \
+            f"mesh {name}: dropout masks repeat across replays: {losses}"
+        r["dropout_losses_lr0"] = losses
+        del cells, step
+
+        fit_steps = graphs.WARMUP_STEPS + 2
+        with counted_steps(f"fit mesh {name}", "fit_mesh", fit_steps) as run:
+            _, hist = train.fit(params, specs[:b * fit_steps],
+                                labels[:b * fit_steps], epochs=1,
+                                batch_size=b, mesh=grid)
+        assert np.isfinite(hist).all(), f"fit mesh {name}: {hist}"
+        run["history"] = hist
+        r["fit"] = run
+        out[name] = r
+        log(f"DP x TP on {name}: replays at keep_prob 0.5, lr 0: losses "
+            f"{losses}; fit(mesh=) {fit_steps} steps, loss {hist}, launches "
+            f"{run['launches']}")
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_dp_tp(params) -> dict:
-    """The DP x TP step over the visible GPUs (model axis 2) against the
-    one-device step, both computing in f64, which holds the grid's logic
-    (the splits, the partial sums, the gradient sums) and not rounding: in
-    f32, half batches reach cuBLAS kernels that round fc6's
-    pre-activations otherwise, a few flip sign at the ReLU, and fc6's
-    gradient moved 0.9% of its largest entry on four H100s. Loss
+    """The DP x TP step (model axis 2) against the one-device step, both
+    computing in f64, which holds the grid's logic (the splits, the
+    partial sums, the gradient sums) and not rounding: in f32, half
+    batches reach cuBLAS kernels that round fc6's pre-activations
+    otherwise, a few flip sign at the ReLU, and fc6's gradient moved 0.9%
+    of its largest entry on four H100s. On every visible GPU where there
+    are two or more, else on a 2 x 2 grid of one GPU's replicas. Loss
     (from fc8's f32 logits either way) within 1e-6 relative, the (f32)
     gradients within 1e-5 of their largest entry."""
     import torch
@@ -1603,11 +1770,8 @@ def check_dp_tp(params) -> dict:
     from svision_tpu_torch.models.alexnet import AlexNet, params_to_numpy
     from svision_tpu_torch.parallel import mesh as M
     n = torch.cuda.device_count()
-    if n < 2:
-        log("DP x TP training step: one GPU visible, so it was not run on "
-            "the card")
-        return {"run": False}
-    grid = M.make_train_mesh(n // 2, 2, device=GPU)
+    grid = (M.make_train_mesh(n // 2, 2, device=GPU) if n >= 2
+            else replica_grid())
     dev0 = grid[0][0]
     cells = M.shard_params_tp(params, grid)
     f64 = torch.float64
@@ -1632,9 +1796,11 @@ def check_dp_tp(params) -> dict:
     assert max(err.values()) <= 1e-5, err
     split = tuple(cells[0][0]["fc6.weight"].shape)
     assert split == (4096 // 2, 9216), split
-    log(f"DP x TP step on a {len(grid)}x2 grid: loss {mloss} vs {loss}, "
-        f"worst grad rel err {max(err.values()):.3g}, fc6 split {split}")
-    return {"run": True, "grid": [len(grid), 2], "loss": mloss,
+    devices = len({d for row in grid for d in row})
+    log(f"DP x TP step on a {len(grid)}x2 grid of {devices} GPU(s): loss "
+        f"{mloss} vs {loss}, worst grad rel err {max(err.values()):.3g}, fc6 "
+        f"split {split}")
+    return {"grid": [len(grid), 2], "devices": devices, "loss": mloss,
             "one_device_loss": loss, "grad_rel_err": err}
 
 
@@ -1692,6 +1858,7 @@ def check_training(params, fx: dict, work: str) -> dict:
                         ("rates", train_rates),
                         ("profile", profile_train_step),
                         ("dp_tp", check_dp_tp),
+                        ("mesh_graph_steps", check_mesh_graph_steps),
                         ("mini_loop", lambda p: check_trained_cli(fx, work))):
         t0 = time.perf_counter()
         out[name] = check(params)
@@ -1699,6 +1866,8 @@ def check_training(params, fx: dict, work: str) -> dict:
     out["seconds"] = seconds
     log(f"phase 7 seconds by check: {seconds}")
     out["runs"] = {f"train_{k}": v for k, v in out["rates"].items()}
+    out["runs"].update({f"train_fit_mesh_{k}": v["fit"]
+                        for k, v in out["mesh_graph_steps"].items()})
     out["runs"].update(out["mini_loop"]["runs"])
     return out
 

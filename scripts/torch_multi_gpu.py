@@ -16,7 +16,14 @@ script runs just them:
 - the CLI with --mesh 2 on chip_smoke phase 6's two-chromosome sample,
   its VCF byte-equal to the one-GPU run's;
 - chip_smoke.check_dp_tp: the DP x TP training step (model axis 2) in f64
-  against the one-device step.
+  against the one-device step;
+- chip_smoke.check_mesh_graph_steps: the DP x TP step's CUDA graphs
+  against eager twins, on four cells of one GPU and, with four GPUs, on a
+  2 x 2 grid of them;
+- the trainer's rates (train_rates): images/s of the DP x TP step, eager
+  and graphed, on a 2 x 2 grid (1 x 2 on two GPUs), beside fit's graphed
+  step on one card, at global batch 64 and 256, and fit itself on the grid
+  and on one card.
 Every check fails the run; the last line is a JSON summary.
 """
 
@@ -27,6 +34,8 @@ import json
 import os
 import sys
 import tempfile
+import time
+import traceback
 
 import numpy as np
 
@@ -108,6 +117,129 @@ def check_mesh_cli(smoke, params) -> dict:
                     records=len(smoke._records(vcf)))
 
 
+RATE_STEPS = 20      # timed steps of each turn of a step rate
+BATCHES = (64, 256)  # the global batches of the training rates
+
+
+def sync_all() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def step_rate(step, batch: int, steps: int = RATE_STEPS) -> float:
+    """Images/s of step() over `steps` calls by host clock, every GPU
+    synchronized at both ends."""
+    sync_all()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    sync_all()
+    return steps * batch / (time.perf_counter() - t0)
+
+
+def busy_by_device(step) -> dict:
+    """One call of step() profiled (torch.profiler), every GPU synchronized
+    at both ends: the host-clock wall ms, and each GPU's busy ms (the
+    union of its traced kernels' and copies' intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from svision_tpu_torch.timing import on_device
+    sync_all()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = {}
+    for e in prof.events():
+        if on_device(e):
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    busy = {}
+    for dev, sp in sorted(spans.items()):
+        us, last = 0.0, float("-inf")
+        for start, end in sorted(sp):
+            if end > last:
+                us += end - max(start, last)
+                last = end
+        busy[dev] = us / 1e3
+    return {"wall_ms": wall_ms, "busy_ms_by_gpu": busy}
+
+
+def train_rates(smoke, params) -> dict:
+    """Training images/s at global batch 64 and 256, f32 with fit's
+    settings (clip 1, lr 1e-3, keep_prob 0.5), on one pre-rendered batch:
+    the DP x TP step on a 2 x 2 grid (1 x 2 with two GPUs), eager
+    (eager=True) and graphed, and fit's step on one card
+    (make_train_step, graphed). Each is first run past its capture
+    (graphs.WARMUP_STEPS + 2 steps), then timed over RATE_STEPS steps in
+    turns: one card, eager, graphed, graphed, eager, one card; each rate is
+    the better of its two turns. The host's CUDA calls in one step of each
+    (chip_smoke.host_calls) and each GPU's busy time in one profiled step
+    (busy_by_device). Then fit itself on the grid and on one card,
+    two epochs of chip_smoke.RATE_STEPS steps each, the rate the second
+    epoch's (K1 renders each batch; chip_smoke.train_rates' method)."""
+    import torch
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.models.alexnet import AlexNet
+    from svision_tpu_torch.parallel import mesh as M
+    n = torch.cuda.device_count()
+    grid = M.make_train_mesh(2 if n >= 4 else 1, 2, device="cuda")
+    dev0 = grid[0][0]
+    kw = dict(learning_rate=1e-3, clip_norm=1.0, keep_prob=0.5)
+    out = {"grid": [len(grid), 2], "steps": {}, "fit": {}}
+    for batch in BATCHES:
+        specs, labels = smoke.labeled(batch, seed=15)
+        images = train.specs_to_images(specs, device=dev0)
+        y = torch.from_numpy(labels).long().to(dev0)
+        gens = {d: torch.Generator(device=d).manual_seed(0)
+                for row in grid for d in row}
+        _, one = train.make_train_step(AlexNet.trainable(params, device=dev0),
+                                       **kw)
+        gen0 = torch.Generator(device=dev0).manual_seed(0)
+        steps = {"one_card_graphed": lambda: one(images, y, gen0)}
+        for how, eager in (("mesh_eager", True), ("mesh_graphed", False)):
+            _, mstep = train.make_mesh_train_step(
+                M.shard_params_tp(params, grid), eager=eager, **kw)
+            steps[how] = lambda mstep=mstep: mstep(images, y, gens)
+        for fn in steps.values():
+            for _ in range(graphs.WARMUP_STEPS + 2):
+                fn()
+        rates = {k: [] for k in steps}
+        for k in ("one_card_graphed", "mesh_eager", "mesh_graphed",
+                  "mesh_graphed", "mesh_eager", "one_card_graphed"):
+            rates[k].append(step_rate(steps[k], batch))
+        r = {k: dict(images_per_s=max(v), turns=v,
+                     host_calls=smoke.host_calls(steps[k], sync_all)["total"],
+                     profile=busy_by_device(steps[k]))
+             for k, v in rates.items()}
+        out["steps"][batch] = r
+        smoke.log(f"train step rates at batch {batch} on a {len(grid)}x2 "
+                  f"grid ({smoke.REPORT['device']['nvidia_smi']}): " +
+                  ", ".join(f"{k} {v['images_per_s']:.1f} images/s "
+                            f"({v['host_calls']} host CUDA calls a step; "
+                            f"profiled {v['profile']})"
+                            for k, v in r.items()))
+        del steps, one, mstep
+        torch.cuda.empty_cache()
+        specs, labels = smoke.labeled(batch * smoke.RATE_STEPS, seed=16)
+        for how, mesh in (("fit_one_card", None), ("fit_mesh", grid)):
+            stamps = []
+            _, hist = train.fit(params, specs, labels, epochs=2,
+                                batch_size=batch, mesh=mesh,
+                                log=lambda m: stamps.append(
+                                    time.perf_counter()))
+            assert np.isfinite(hist).all(), f"{how}: {hist}"
+            out["fit"].setdefault(batch, {})[how] = rate = (
+                smoke.RATE_STEPS * batch / (stamps[1] - stamps[0]))
+            smoke.log(f"{how} at batch {batch}: {rate:.1f} images/s")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the results as JSON here")
@@ -122,18 +254,30 @@ def main(argv=None) -> int:
     smoke.REPORT["device"] = {"nvidia_smi": smoke.nvidia_smi()}
     params = init_params(0)
     out = dict(device=smoke.REPORT["device"]["nvidia_smi"],
-               gpus=torch.cuda.device_count(),
-               engines=check_engines(smoke, params),
-               mesh_cli=check_mesh_cli(smoke, params),
-               dp_tp=smoke.check_dp_tp(params))
+               gpus=torch.cuda.device_count(), failed={})
+    # the trainer first: its graphs are the newest of these paths. A check
+    # that fails is recorded and the others still run; any failure fails
+    # the run.
+    for name, check in (
+            ("dp_tp", smoke.check_dp_tp),
+            ("mesh_graph_steps", smoke.check_mesh_graph_steps),
+            ("train_rates", lambda p: train_rates(smoke, p)),
+            ("engines", lambda p: check_engines(smoke, p)),
+            ("mesh_cli", lambda p: check_mesh_cli(smoke, p))):
+        try:
+            out[name] = check(params)
+        except Exception:  # noqa: BLE001 - reported, and fails the run
+            out["failed"][name] = traceback.format_exc()
+            smoke.log(f"{name} FAILED:\n{out['failed'][name]}")
+        torch.cuda.empty_cache()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
     print(out["device"])
-    print(json.dumps({"ok": True, "gpus": out["gpus"]}))
-    return 0
-
+    print(json.dumps({"ok": not out["failed"], "gpus": out["gpus"],
+                      "failed": sorted(out["failed"])}))
+    return 1 if out["failed"] else 0
 
 if __name__ == "__main__":
     sys.exit(main())

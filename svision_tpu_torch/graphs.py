@@ -21,17 +21,22 @@ captures on a thread (warmup_async) while the caller's thread goes on, and
 under a global capture a CUDA call of that other thread that is illegal
 during a capture (cudaHostAlloc, which pins memory) would fail it. Nothing
 here falls back: a capture that fails raises.
+
+A CUDA graph holds the work of one device's stream. A step that spans
+devices (the DP x TP trainer's) is cut into pieces that each run on one
+device, with the copies between devices left eager between them: Pieces
+captures each piece on its own device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Sequence, Tuple
 
 import torch
 
 from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
 
-# eager steps a trainer runs before it captures its step (StepGraph)
+# eager steps a trainer runs before it captures its step (Pieces)
 WARMUP_STEPS = 3
 
 
@@ -59,21 +64,25 @@ class Graph:
         return self.outputs
 
 
-def capture(fn: Callable, device: torch.device, *, stream=None,
+def capture(fn: Callable, device: torch.device, *, stream=None, pool=None,
             generators: Sequence[torch.Generator] = ()) -> Graph:
     """Capture fn()'s CUDA work on device into a Graph; nothing of it runs
     until a replay. fn must read its inputs from tensors that outlive the
     graph (static buffers the caller fills before each replay). Random draws
-    from `generators` advance at every replay."""
+    from `generators` (on device) advance at every replay. pool: a memory
+    pool shared with graphs captured before (torch.cuda.graph_pool_handle),
+    which must then replay in the order they were captured."""
     wrappers = kernel_wrappers()
     before = [w.launches for w in wrappers]
     graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
     with torch.cuda.device(device):
+        # a generator's first registration allocates its graph-side seed
+        # and offset on the current device
+        for gen in generators:
+            graph.register_generator_state(gen)
         if stream is None:
             stream = torch.cuda.Stream(device)
-        with torch.cuda.graph(graph, stream=stream,
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
                               capture_error_mode="thread_local"):
             outputs = fn()
     launches = []
@@ -87,12 +96,13 @@ def capture(fn: Callable, device: torch.device, *, stream=None,
 
 class StepGraph:
     """A training step as a CUDA graph, by PyTorch's whole-network capture
-    recipe. The first WARMUP_STEPS calls run fn eagerly on a side stream: they
-    are real steps of the run, and they create the optimizer's momentum
-    buffers and settle cuDNN. The next call captures fn on that stream and
-    replays it; every later call replays. reset() runs before each eager
-    call and once before the capture: zero_grad(set_to_none=True), so the
-    capture allocates the gradients in the graph's pool, where they stay.
+    recipe: a step of one piece (Pieces). The first WARMUP_STEPS calls run
+    fn eagerly on a side stream: they are real steps of the run, and they
+    create the optimizer's momentum buffers and settle cuDNN. The next call
+    captures fn on that stream and replays it; every later call replays.
+    reset() runs before each eager call and once before the capture:
+    zero_grad(set_to_none=True), so the capture allocates the gradients in
+    the graph's pool, where they stay.
 
     fn reads its inputs from static buffers that the caller fills before
     each call, and draws its random numbers from `generator`, which the
@@ -103,21 +113,71 @@ class StepGraph:
                  generator: torch.Generator):
         self.fn, self.reset, self.device = fn, reset, device
         self.generator = generator
-        self.eager_calls = 0
-        self.graph = None
-        self.stream = torch.cuda.Stream(device)
+        self.pieces = Pieces(graphed=True)
 
     def __call__(self):
-        if self.graph is None:
+        if not self.pieces.replaying:
             self.reset()
-            if self.eager_calls < WARMUP_STEPS:
-                self.eager_calls += 1
-                current = torch.cuda.current_stream(self.device)
-                self.stream.wait_stream(current)
-                with torch.cuda.stream(self.stream):
-                    out = self.fn()
-                current.wait_stream(self.stream)
+        out = self.pieces("step", self.device, self.fn, (self.generator,))
+        self.pieces.end_step()
+        return out
+
+
+class Pieces:
+    """A step cut into pieces, each a function of one device's tensors,
+    called by key in the same order at every step; what moves between
+    devices is copied eagerly between the calls, into static buffers.
+    A cross-device copy_ runs on the source device's current stream behind
+    an event of the destination's, and the destination's current stream
+    waits for it, so the pieces and the copies are ordered by CUDA events,
+    never by a host sync.
+
+    graphed=False (the CPU, or eager=True on the card) calls every piece
+    as it is. graphed=True applies PyTorch's capture recipe to each piece:
+    for the first WARMUP_STEPS steps a piece runs eagerly on its device's
+    side stream; in the next step it is captured on that stream and
+    replayed, and from then on replayed, on its device's current stream.
+    The pieces of one device share the side stream and one memory pool, so
+    they must replay in the order they were captured, which calling them
+    in the same order every step gives. The caller ends each step with
+    end_step()."""
+
+    def __init__(self, graphed: bool):
+        self.graphed = graphed
+        self.steps = 0
+        self.graphs: Dict[Hashable, Graph] = {}
+        self.streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self.pools: Dict[torch.device, tuple] = {}
+
+    @property
+    def replaying(self) -> bool:
+        """Every piece has been captured: this step replays them all."""
+        return self.graphed and self.steps > WARMUP_STEPS
+
+    def __call__(self, key: Hashable, device: torch.device, fn: Callable,
+                 generators: Sequence[torch.Generator] = ()):
+        """fn()'s outputs (static once captured: the caller copies what it
+        keeps). Random draws from `generators` advance at every replay."""
+        if not self.graphed:
+            return fn()
+        graph = self.graphs.get(key)
+        if graph is None:
+            if device not in self.streams:
+                self.streams[device] = torch.cuda.Stream(device)
+                with torch.cuda.device(device):
+                    self.pools[device] = torch.cuda.graph_pool_handle()
+            stream = self.streams[device]
+            if self.steps < WARMUP_STEPS:
+                current = torch.cuda.current_stream(device)
+                stream.wait_stream(current)
+                with torch.cuda.device(device), torch.cuda.stream(stream):
+                    out = fn()
+                current.wait_stream(stream)
                 return out
-            self.graph = capture(self.fn, self.device, stream=self.stream,
-                                 generators=(self.generator,))
-        return self.graph.replay()
+            graph = self.graphs[key] = capture(
+                fn, device, stream=stream, pool=self.pools[device],
+                generators=generators)
+        return graph.replay()
+
+    def end_step(self) -> None:
+        self.steps += 1

@@ -21,9 +21,11 @@ On the card a step is a CUDA graph after its first eager steps
 (graphs.StepGraph), as the JAX trainers jit theirs: make_train_step's
 forward, backward, clip and SGD for fit, and for fit_device the whole step,
 from the gather of a batch's endpoints to the update (make_device_step).
-eager=True on make_train_step and make_device_step keeps the card's step
-eager, the reference the graphs are held to. On the CPU every step is
-eager.
+The DP x TP step (make_mesh_train_step, fit(mesh=...)) spans devices, so
+it is cut into pieces of one device each, every piece its own graph
+(graphs.Pieces). eager=True on make_train_step, make_device_step and
+make_mesh_train_step keeps the card's step eager, the reference the graphs
+are held to. On the CPU every step is eager.
 
 f32 training runs under training_precision (TF32 off, and oneDNN off on
 the CPU), so the card's step matches the CPU's; bf16 compute is the fast
@@ -163,13 +165,19 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor],
     in f64: an f32 norm over fc6's 37.7 M entries was off by 5e-4 on the
     CPU. Returns the norm."""
     dev = grads[0].device
-    norm = torch.linalg.vector_norm(torch.stack(
+    norm, scale = _clip_scale(
         [torch.linalg.vector_norm(g, dtype=torch.float64).to(dev)
-         for g in grads]))
-    scale = torch.clamp(max_norm / norm, max=1.0).float()
+         for g in grads], max_norm)
     for g in grads:
         g.mul_(scale.to(g.device))
     return norm
+
+
+def _clip_scale(norms: Sequence[torch.Tensor], max_norm: float):
+    """(global norm, f32 scale min(1, max_norm / global norm)) from each
+    tensor's f64 norm, in order (0-d tensors on one device)."""
+    norm = torch.linalg.vector_norm(torch.stack(list(norms)))
+    return norm, torch.clamp(max_norm / norm, max=1.0).float()
 
 
 def _sgd_step(model: AlexNet, learning_rate: float, clip_norm: Optional[float],
@@ -252,7 +260,8 @@ def make_train_step(model: AlexNet, *, learning_rate: float = 1e-3,
 
 def make_mesh_train_step(cells, *, learning_rate: float = 1e-3,
                          clip_norm: Optional[float] = None,
-                         keep_prob: float = 0.5, compute_dtype=torch.float32):
+                         keep_prob: float = 0.5, compute_dtype=torch.float32,
+                         eager: bool = False):
     """The train step over parallel.mesh placements (shard_params_tp or
     replicate_params): cells[d][m] holds the parameters of the device at
     data row d, model column m. Each data row takes an equal share of the
@@ -261,61 +270,287 @@ def make_mesh_train_step(cells, *, learning_rate: float = 1e-3,
     first device, which runs the rest. Gradients are summed over every
     cell that holds a copy of the same tensor (the data axis, and the
     model axis for replicated ones) before the clip, and every copy then
-    takes the same update. Returns (optimizer, train_step) like
-    make_train_step; train_step(images, labels, generators) takes a
-    {device: torch.Generator} map for dropout."""
-    from svision_tpu_torch.parallel.mesh import holders
-    groups = holders(cells)
-    leaves = [t for group in groups for t in group]
-    opt = torch.optim.SGD(leaves, lr=learning_rate, momentum=0.9)
-    nd, cd = len(cells), compute_dtype
+    takes the same update: the JAX package's jitted mesh step, where GSPMD
+    inserts the same sums.
 
-    head0 = cells[0][0]["fc8.weight"].device
+    Returns (optimizers, train_step): optimizers maps each cell (d, m) to
+    the torch.optim.SGD (momentum 0.9) over its parameters, and
+    train_step(images, labels, generators) takes a {device:
+    torch.Generator} map for dropout and returns the loss as a device
+    tensor on cells[0][0]'s device. Every call copies images and labels
+    into static buffers, so it takes the first call's shapes, dtypes and
+    generators; the batch must split evenly over the data rows.
 
-    def _mesh_loss(images, labels, generators):
-        rows = images.shape[0] // nd
-        losses = []
-        for d, row in enumerate(cells):
-            x = images[d * rows:(d + 1) * rows]
-            y = labels[d * rows:(d + 1) * rows]
-            dev0 = row[0]["fc8.weight"].device
-            fc7 = None
-            for cell in row:
-                dev = cell["fc8.weight"].device
-                h = _features(cell, x.to(dev).to(cd).permute(0, 3, 1, 2), cd,
-                              s2d=False)
-                h = _dense_relu(h, cell["fc6.weight"], cell["fc6.bias"], cd)
-                h = _dropout(h, keep_prob, generators[dev])
-                part = F.linear(h, cell["fc7.weight"].to(cd)).to(dev0)
-                fc7 = part if fc7 is None else fc7 + part
-            h = torch.relu(fc7 + row[0]["fc7.bias"].to(cd))
-            h = _dropout(h, keep_prob, generators[dev0])
-            logits = F.linear(h.float(), row[0]["fc8.weight"].float(),
-                              row[0]["fc8.bias"].float())
-            losses.append(F.cross_entropy(logits, y.to(dev0).long()).to(head0))
-        return torch.stack(losses).mean()
+    The step is cut into pieces at its cross-device points (_MeshStep).
+    On the card, unless eager, each piece is a CUDA graph on its own
+    device after graphs.WARMUP_STEPS eager steps (graphs.Pieces); on the
+    CPU, or eager, the same pieces run eagerly."""
+    step = _MeshStep(cells, learning_rate, clip_norm, keep_prob,
+                     compute_dtype, eager)
+    return step.optimizers, step
 
-    def train_step(images, labels, generators):
-        opt.zero_grad(set_to_none=True)
-        with training_precision(cd):
-            loss = _mesh_loss(images, labels, generators)
-            loss.backward()
-        grads = []
-        for group in groups:
-            g = torch.zeros_like(group[0])
-            for t in group:
-                if t.grad is not None:
-                    g += t.grad.to(g.device)
-            grads.append(g)
+
+# what a row's head differentiates, on the row's first cell; every cell
+# differentiates the rest, its trunk (the conv stack, fc6, its fc7 rows)
+_HEAD = ("fc7.bias", "fc8.weight", "fc8.bias")
+
+
+def _views(buf: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """Consecutive views of the flat buffer buf, one of each shape."""
+    out, at = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape))
+        out.append(buf[at:at + n].view(shape))
+        at += n
+    return out
+
+
+class _MeshStep:
+    """make_mesh_train_step's train_step. The step is cut where it crosses
+    cells into pieces that each run on one cell's device (graphs.Pieces),
+    with copies between cells, even on one device, between them. For each
+    data row d, in order:
+      fwd (d, m)  on every cell of the row: from its static rows of the
+                  batch, the conv stack, fc6, dropout and its fc7 partial
+                  product; its autograd graph is kept for bwd;
+      head d      on cell (d, 0): the partials summed in column order,
+                  fc7's bias and ReLU, dropout, fc8, the row's loss, and
+                  its backward to the head's parameters and d(sum);
+      bwd (d, m)  on every cell of the row: its backward from d(sum), then
+                  its gradients packed, one flat buffer per owner they go
+                  to.
+    Then, over the grid:
+      reduce o    on each owner o (the cell of a tensor's first copy in
+                  holders() order): each owned tensor's gradients summed
+                  in holders() order, from zeros, with their f64 norms;
+                  the sums packed for the other cells that hold them; on
+                  cell (0, 0) also the loss, the mean of the rows' losses;
+      update c    on every cell: its tensors take their summed gradients
+                  (its own or received), scaled by the clip that every
+                  cell computes alike from every owner's norms, then its
+                  SGD.
+    Every copy takes the same update from the same numbers, and on one
+    device the arithmetic is the composite step's: the same sums in the
+    same order, the same norms, one SGD per cell in place of one over the
+    grid. Dropout draws from the cell device's generator in the
+    composite's order (row by row, a row's cells before its head)."""
+
+    def __init__(self, cells, learning_rate, clip_norm, keep_prob, cd,
+                 eager):
+        from svision_tpu_torch.parallel.mesh import holders
+        self.cells, self.clip_norm = cells, clip_norm
+        self.keep_prob, self.cd = keep_prob, cd
+        self.nd, self.nm = len(cells), len(cells[0])
+        self.grid = [(d, m) for d in range(self.nd) for m in range(self.nm)]
+        self.dev = {c: self.p(c)["fc8.weight"].device for c in self.grid}
+        self.pieces = graphs.Pieces(graphed=not eager and all(
+            v.type == "cuda" for v in self.dev.values()))
+        self.optimizers = {c: torch.optim.SGD(self.p(c).values(),
+                                              lr=learning_rate, momentum=0.9)
+                           for c in self.grid}
+        groups = holders(cells)
+        self.group_of = {key: gi for gi, g in enumerate(groups) for key in g}
+        self.owner = [g[0][0] for g in groups]
+        self.owned = {}
+        for gi, o in enumerate(self.owner):
+            self.owned.setdefault(o, []).append(gi)
+        self.sources = [[(c, k) for c, k in g if k not in _HEAD or c[1] == 0]
+                        for g in groups]
+        # gradients from a cell to an owner, sums from an owner to a cell
+        # holding a copy: (src, dst) -> [(group, name)], in group order
+        to_owner, to_holder = {}, {}
+        for gi, g in enumerate(groups):
+            o = self.owner[gi]
+            for c, k in self.sources[gi]:
+                if c != o:
+                    to_owner.setdefault((c, o), []).append((gi, k))
+            for c, k in g:
+                if c != o:
+                    to_holder.setdefault((o, c), []).append((gi, k))
+        self.grads_out, self.grads_in = self._links(to_owner)
+        self.sums_out, self.sums_in = self._links(to_holder)
+        self.norms_in = {}
         if clip_norm is not None:
-            clip_by_global_norm_(grads, clip_norm)
-        for group, g in zip(groups, grads):
-            for t in group:
-                t.grad = g.to(t.device)
-        opt.step()
-        return loss.detach()
+            self.norms_in = {(o, c): torch.empty(
+                len(gis), dtype=torch.float64, device=self.dev[c])
+                for o, gis in self.owned.items() for c in self.grid if c != o}
+        self.x = None                 # static inputs, made by the first call
+        self.autograd = {}            # fwd's partial products, for bwd
+        self.out = {}                 # each piece's outputs this step
 
-    return opt, train_step
+    def p(self, c):
+        return self.cells[c[0]][c[1]]
+
+    def _links(self, plan):
+        """For each (src, dst) of plan: (items, the flat send buffer on
+        src's device, the receive buffer on dst's), and dst's view of
+        each item's tensor in it, by (src, dst, group)."""
+        links, views = {}, {}
+        for (src, dst), items in plan.items():
+            shapes = [self.p(src)[k].shape for _, k in items]
+            n = sum(int(np.prod(sh)) for sh in shapes)
+            dtype = self.p(src)[items[0][1]].dtype
+            send = torch.empty(n, dtype=dtype, device=self.dev[src])
+            recv = torch.empty(n, dtype=dtype, device=self.dev[dst])
+            links[(src, dst)] = (items, send, recv)
+            for (gi, _), v in zip(items, _views(recv, shapes)):
+                views[(src, dst, gi)] = v
+        return links, views
+
+    def _bind(self, images, labels, generators):
+        """Static inputs from the first call; later calls must match it."""
+        gens = {v: generators[v] for v in set(self.dev.values())}
+        if self.x is not None:
+            if (images.shape != self.shape[0] or labels.shape != self.shape[1]
+                    or images.dtype != self.x[(0, 0)].dtype
+                    or labels.dtype != self.y[0].dtype
+                    or any(gens[v] is not g for v, g in self.gens.items())):
+                raise ValueError("the DP x TP train_step takes the first "
+                                 "call's shapes, dtypes and generators on "
+                                 "every call")
+            return
+        if images.shape[0] % self.nd:
+            raise ValueError(f"a batch of {images.shape[0]} does not split "
+                             f"evenly over {self.nd} data rows")
+        self.rows = rows = images.shape[0] // self.nd
+        self.shape, self.gens = (images.shape, labels.shape), gens
+        self.x = {c: torch.empty((rows,) + images.shape[1:],
+                                 dtype=images.dtype, device=self.dev[c])
+                  for c in self.grid}
+        self.y = [torch.empty((rows,) + labels.shape[1:], dtype=labels.dtype,
+                              device=self.dev[(d, 0)]) for d in range(self.nd)]
+        width = self.p((0, 0))["fc7.weight"].shape[0]
+        # fc7 partials at their row's head, d(sum) at the cells
+        self.part_in = {c: torch.empty((rows, width), dtype=self.cd,
+                                       device=self.dev[(c[0], 0)])
+                        for c in self.grid if c[1]}
+        self.dsum_in = {c: torch.empty((rows, width), dtype=self.cd,
+                                       device=self.dev[c])
+                        for c in self.grid if c[1]}
+        self.loss_in = {d: torch.empty((), dtype=torch.float32,
+                                       device=self.dev[(0, 0)])
+                        for d in range(1, self.nd)}
+
+    def _fwd(self, c):
+        p, cd = self.p(c), self.cd
+        with training_precision(cd):
+            h = _features(p, self.x[c].to(cd).permute(0, 3, 1, 2), cd,
+                          s2d=False)
+            h = _dense_relu(h, p["fc6.weight"], p["fc6.bias"], cd)
+            h = _dropout(h, self.keep_prob, self.gens[self.dev[c]])
+            part = F.linear(h, p["fc7.weight"].to(cd))
+        self.autograd[c] = part
+        return part.detach()
+
+    def _head(self, d):
+        c0 = (d, 0)
+        p, cd = self.p(c0), self.cd
+        with training_precision(cd):
+            s = self.out["fwd", c0]
+            for m in range(1, self.nm):
+                s = s + self.part_in[(d, m)]
+            s = s.detach().requires_grad_()
+            h = torch.relu(s + p["fc7.bias"].to(cd))
+            h = _dropout(h, self.keep_prob, self.gens[self.dev[c0]])
+            logits = F.linear(h.float(), p["fc8.weight"].float(),
+                              p["fc8.bias"].float())
+            loss = F.cross_entropy(logits, self.y[d].long())
+            # the grid's loss is the mean of its rows'
+            (loss / self.nd).backward()
+        return loss.detach(), s.grad
+
+    def _bwd(self, c):
+        p = self.p(c)
+        dsum = self.out["head", c[0]][1] if c[1] == 0 else self.dsum_in[c]
+        with training_precision(self.cd):
+            self.autograd.pop(c).backward(dsum)
+        for (src, _), (items, send, _) in self.grads_out.items():
+            if src == c:
+                torch.cat([p[k].grad.reshape(-1) for _, k in items], out=send)
+        # the raw gradients stay referenced while the graphs replay
+        return [t.grad for t in p.values() if t.grad is not None]
+
+    def _reduce(self, o):
+        p = self.p(o)
+        sums = {}
+        for gi in self.owned[o]:
+            g = torch.zeros_like(p[self.sources[gi][0][1]])
+            for c, k in self.sources[gi]:
+                g += p[k].grad if c == o else self.grads_in[(c, o, gi)]
+            sums[gi] = g
+        for (src, _), (items, send, _) in self.sums_out.items():
+            if src == o:
+                torch.cat([sums[gi].reshape(-1) for gi, _ in items], out=send)
+        norms = loss = None
+        if self.clip_norm is not None:
+            norms = torch.stack([torch.linalg.vector_norm(
+                sums[gi], dtype=torch.float64) for gi in self.owned[o]])
+        if o == (0, 0):
+            loss = torch.stack([self.out["head", 0][0]] + [
+                self.loss_in[d] for d in range(1, self.nd)]).mean()
+        return sums, norms, loss
+
+    def _update(self, c):
+        p = self.p(c)
+        for k, t in p.items():
+            gi = self.group_of[(c, k)]
+            o = self.owner[gi]
+            t.grad = (self.out["reduce", c][0][gi] if o == c
+                      else self.sums_in[(o, c, gi)])
+        if self.clip_norm is not None:
+            norms = []
+            for gi, o in enumerate(self.owner):
+                mine = (self.out["reduce", c][1] if o == c
+                        else self.norms_in[(o, c)])
+                norms.append(mine[self.owned[o].index(gi)])
+            _, scale = _clip_scale(norms, self.clip_norm)
+            for t in p.values():
+                t.grad.mul_(scale)
+        self.optimizers[c].step()
+
+    def __call__(self, images, labels, generators):
+        self._bind(images, labels, generators)
+        run, out, rows = self.pieces, self.out, self.rows
+        if not run.replaying:
+            for opt in self.optimizers.values():
+                opt.zero_grad(set_to_none=True)
+        for c in self.grid:
+            self.x[c].copy_(images[c[0] * rows:(c[0] + 1) * rows])
+        for d in range(self.nd):
+            self.y[d].copy_(labels[d * rows:(d + 1) * rows])
+        for d in range(self.nd):
+            row = [(d, m) for m in range(self.nm)]
+            for c in row:
+                out["fwd", c] = run(("fwd", c), self.dev[c],
+                                    lambda c=c: self._fwd(c),
+                                    (self.gens[self.dev[c]],))
+            for c in row[1:]:
+                self.part_in[c].copy_(out["fwd", c])
+            out["head", d] = run(("head", d), self.dev[row[0]],
+                                 lambda d=d: self._head(d),
+                                 (self.gens[self.dev[row[0]]],))
+            for c in row[1:]:
+                self.dsum_in[c].copy_(out["head", d][1])
+            for c in row:
+                run(("bwd", c), self.dev[c], lambda c=c: self._bwd(c))
+        # a copy's source stream waits for all the destination's current
+        # stream holds: copied earlier, a row's loss would hold its
+        # backward until row 0's had run
+        for d, recv in self.loss_in.items():
+            recv.copy_(out["head", d][0])
+        for _, send, recv in self.grads_out.values():
+            recv.copy_(send)
+        for o in self.owned:
+            out["reduce", o] = run(("reduce", o), self.dev[o],
+                                   lambda o=o: self._reduce(o))
+        for _, send, recv in self.sums_out.values():
+            recv.copy_(send)
+        for (o, _), recv in self.norms_in.items():
+            recv.copy_(out["reduce", o][1])
+        for c in self.grid:
+            run(("update", c), self.dev[c], lambda c=c: self._update(c))
+        run.end_step()
+        return out["reduce", (0, 0)][2].clone()
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +651,8 @@ def fit(params, specs, labels, *, epochs: int = 3, batch_size: int = 32,
     so at keep_prob=1 the run follows the JAX package's step for step.
     With mesh (a parallel.mesh.make_train_mesh grid) the batch is split
     over its data rows, with fc6/fc7 tensor-parallel when it has more
-    than one model column (shard_params_tp); one device otherwise."""
+    than one model column (shard_params_tp), by make_mesh_train_step's
+    step; one device otherwise. Either step is graphed on the card."""
     n = len(labels)
     if n < batch_size:
         raise ValueError(f"need at least batch_size={batch_size} examples, "

@@ -115,15 +115,16 @@ def shard_params_tp(params: Mapping[str, object], mesh):
     return _place(params, mesh, split=True)
 
 
-def holders(cells) -> List[List[torch.Tensor]]:
-    """The copies of each parameter tensor: for a replicated parameter one
-    per cell, for a model-axis shard one per data row of its column."""
-    groups: Dict[Tuple[str, Optional[int]], List[torch.Tensor]] = {}
-    for row in cells:
+def holders(cells) -> List[List[Tuple[Tuple[int, int], str]]]:
+    """The copies of each parameter tensor, as ((data row, model column),
+    name) in row-major order: for a replicated parameter one per cell, for
+    a model-axis shard one per data row of its column."""
+    groups: Dict[Tuple[str, Optional[int]], list] = {}
+    for d, row in enumerate(cells):
         for m, cell in enumerate(row):
-            for k, t in cell.items():
+            for k in cell:
                 shard = m if k in _TP_SPLIT and len(row) > 1 else None
-                groups.setdefault((k, shard), []).append(t)
+                groups.setdefault((k, shard), []).append(((d, m), k))
     return list(groups.values())
 
 

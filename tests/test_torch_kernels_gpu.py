@@ -473,3 +473,48 @@ def test_graphed_dropout_draws_new_masks(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     losses = [float(step(x, y, gen)) for _ in range(graphs.WARMUP_STEPS + 3)]
     assert len(set(losses)) == len(losses), losses
+
+
+@pytest.mark.parametrize("keep_prob", [1.0, 0.5])
+def test_mesh_step_graphs_equal_eager(cuda, keep_prob):
+    """The DP x TP step (make_mesh_train_step) on a 2 x 2 grid of four
+    cells of one GPU: after the eager warm-up steps its first replay (one
+    CUDA graph a piece, 16 in all) against an eager twin (eager=True) from
+    the same weights, momentum and generator state: the same loss and
+    parameters within 1e-6 of their largest entries (max-pool's backward
+    adds with atomics). At keep_prob 0.5 the graphs draw the eager step's
+    dropout masks: the twin's generator starts where the graphed one is."""
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.models import train
+    from svision_tpu_torch.parallel import mesh as M
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    grid = ((cuda, cuda), (cuda, cuda))
+    x = raster_kernel.render_images(*_batch(cuda, 8))
+    y = torch.arange(8, device=cuda) % 5
+    cells = M.shard_params_tp(init_params(0), grid)
+    gen = {cuda: torch.Generator(device=cuda).manual_seed(0)}
+    opts, step = train.make_mesh_train_step(
+        cells, learning_rate=5e-3, clip_norm=1.0, keep_prob=keep_prob)
+    for _ in range(graphs.WARMUP_STEPS):
+        step(x, y, gen)
+    twin = tuple(tuple({k: t.detach().clone().requires_grad_(True)
+                        for k, t in cell.items()} for cell in row)
+                 for row in cells)
+    twin_opts, twin_step = train.make_mesh_train_step(
+        twin, learning_rate=5e-3, clip_norm=1.0, keep_prob=keep_prob,
+        eager=True)
+    for c, opt in opts.items():
+        for p, q in zip(opt.param_groups[0]["params"],
+                        twin_opts[c].param_groups[0]["params"]):
+            twin_opts[c].state[q]["momentum_buffer"] = \
+                opt.state[p]["momentum_buffer"].clone()
+    twin_gen = {cuda: torch.Generator(device=cuda)}
+    twin_gen[cuda].set_state(gen[cuda].get_state())
+    got, want = float(step(x, y, gen)), float(twin_step(x, y, twin_gen))
+    assert len(step.pieces.graphs) == 16 and step.pieces.replaying
+    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+    for row, trow in zip(cells, twin):
+        for cell, tcell in zip(row, trow):
+            for k, p in cell.items():
+                q = tcell[k]
+                assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k
