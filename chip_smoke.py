@@ -24,7 +24,12 @@ Phases, each of which fails the run with a non-zero exit on any check:
   4. drive the CLI path (svision_tpu_torch.cli.run_pipeline) on a
      synthetic genome + BAM with seeded random weights, in the default bf16
      mode and with --exact, counting kernel launches in each run, and hold
-     the --exact VCF against the same run on the CPU;
+     the --exact VCF against the same run on the CPU; then each optional
+     mode of CLI_MODES (-c, --qname, -t 2, --graph, --graph on complex
+     events, --hash, --mechanism, --cluster, --contig, --resume twice) with
+     --exact on the card and on the CPU, every VCF of the two output trees
+     equal outside QUAL (QUAL within +/-15) and every other file byte for
+     byte, and once in the default mode on the card;
   5. serve: a warm default-mode server (svision_tpu_torch.serve) in this
      process answers three concurrent socket clients, two requests each, on
      phase 4's sample and a two-chromosome one; every VCF must equal a
@@ -869,14 +874,18 @@ def mesh_devices(spec: str = "auto", device: str = "cuda") -> int:
 
 
 def make_fixtures(params, work: str) -> dict:
-    """Seeded weights and two synthetic samples: phase 4's (chr1 150 kb,
-    DEL/INS/INV) and a two-chromosome one (chr1 150 kb and chr2 100 kb, one
-    event on each) on a genome whose chr1 is phase 4's chr1."""
+    """Seeded weights and four synthetic samples: phase 4's (chr1 150 kb,
+    DEL/INS/INV), a two-chromosome one (chr1 150 kb and chr2 100 kb, one
+    event on each) on a genome whose chr1 is phase 4's chr1, and the
+    complex-event and contig samples of phase 4's optional modes (those of
+    tests/test_torch_cli_modes.py)."""
     from svision_tpu_torch import sim
     from svision_tpu_torch.models.checkpoint import save_params
     fx = {k: os.path.join(work, f) for k, f in (
         ("genome", "ref.fa"), ("bam", "sample.bam"), ("weights", "w.npz"),
-        ("genome2", "ref2.fa"), ("bam2", "two.bam"))}
+        ("genome2", "ref2.fa"), ("bam2", "two.bam"),
+        ("genome_complex", "complex.fa"), ("bam_complex", "complex.bam"),
+        ("genome_contig", "contig.fa"), ("bam_contig", "contig.bam"))}
     seqs = sim.make_genome(fx["genome"], {"chr1": 150000}, seed=7)
     sim.make_sv_bam(fx["bam"], seqs, seed=7, support=8,
                     events=[("DEL", "chr1", 20000, 300),
@@ -888,19 +897,101 @@ def make_fixtures(params, work: str) -> dict:
     sim.make_sv_bam(fx["bam2"], seqs2, seed=11, support=8,
                     events=[("DEL", "chr1", 40000, 300),
                             ("INS", "chr2", 50000, 220)])
+    seqs = sim.make_genome(fx["genome_complex"], {"chr1": 200000}, seed=21)
+    sim.make_sv_bam(fx["bam_complex"], seqs, seed=21, support=8,
+                    events=[("INV+DEL", "chr1", 60000, 300),
+                            ("DEL+INS", "chr1", 140000, 400)])
+    # one DEL on two haplotype contigs: --contig's min_support 1 still needs
+    # two signatures to pass the partition gate
+    seqs = sim.make_genome(fx["genome_contig"], {"chr1": 120000}, seed=5)
+    sim.make_sv_bam(fx["bam_contig"], seqs, seed=5, support=2,
+                    events=[("DEL", "chr1", 40000, 400)])
     save_params(params, fx["weights"])
     return fx
+
+
+# phase 4's optional modes: mode -> (sample, arguments, runs into one output
+# directory), as in tests/test_torch_cli_modes.py
+CLI_MODES = {
+    "region": ("plain", ["-c", "chr1"], 1),
+    "qname": ("plain", ["--qname"], 1),
+    "threads": ("plain", ["-t", "2"], 1),
+    "graph": ("plain", ["--graph"], 1),
+    "graph_complex": ("complex", ["--graph"], 1),
+    "hash": ("plain", ["--hash"], 1),
+    "mechanism": ("plain", ["--mechanism"], 1),
+    "cluster": ("plain", ["--cluster", "--qname"], 1),
+    "contig": ("contig", ["--contig"], 1),
+    "resume": ("plain", ["--resume"], 2),
+}
+
+
+# make_fixtures' samples: the keys of their BAM and genome, -n and -s
+SAMPLES = {"plain": ("bam", "genome", "synthsample", "3"),
+           "complex": ("bam_complex", "genome_complex", "csvsample", "3"),
+           "contig": ("bam_contig", "genome_contig", "asm", "5")}
+
+
+def vcf_qual_delta(got: str, want: str) -> float:
+    """Hold a card's VCF to its CPU twin: headers and every non-QUAL byte
+    equal, QUAL within +/-15. Returns the largest QUAL difference."""
+    head_g = [l for l in open(got) if l.startswith("#")]
+    head_w = [l for l in open(want) if l.startswith("#")]
+    assert head_g == head_w, f"VCF headers differ: {got}, {want}"
+    rg, rw = _records(got), _records(want)
+    assert len(rg) == len(rw), (got, len(rg), len(rw))
+    max_dq = 0.0
+    for g, w in zip(rg, rw):
+        gg, gq = _split_qual(g)
+        ww, wq = _split_qual(w)
+        assert gg == ww, f"non-QUAL fields differ:\n{w}{g}"
+        assert abs(gq - wq) <= 15.0, f"QUAL beyond +/-15:\n{w}{g}"
+        max_dq = max(max_dq, abs(gq - wq))
+    return max_dq
+
+
+def output_tree(outdir: str) -> dict:
+    """relative path -> absolute path of every file and directory under a
+    CLI output directory, the timestamped run logs left out."""
+    out = {}
+    for dirpath, dirnames, filenames in os.walk(outdir):
+        for f in dirnames + [f for f in filenames
+                             if not (f.startswith("SVision_")
+                                     and f.endswith(".log"))]:
+            path = os.path.join(dirpath, f)
+            out[os.path.relpath(path, outdir)] = path
+    return out
+
+
+def hold_tree(got_dir: str, want_dir: str) -> dict:
+    """A card's output tree against its CPU twin: the same files; every VCF
+    by vcf_qual_delta, every other file byte for byte."""
+    got, want = output_tree(got_dir), output_tree(want_dir)
+    assert sorted(got) == sorted(want), \
+        f"output files differ: {sorted(got)} != {sorted(want)}"
+    vcfs, others, max_dq = 0, 0, 0.0
+    for rel, path in sorted(want.items()):
+        if os.path.isdir(path):
+            assert os.path.isdir(got[rel]), f"{rel}: not a directory"
+        elif rel.endswith(".vcf"):
+            max_dq = max(max_dq, vcf_qual_delta(got[rel], path))
+            vcfs += 1
+        else:
+            same_bytes(got[rel], path, rel)
+            others += 1
+    return dict(vcfs=vcfs, other_files=others, max_qual_delta=max_dq)
 
 
 def check_cli(fx: dict, work: str) -> dict:
     from svision_tpu_torch import cli
 
-    def run(name, mode, extra):
+    def run(name, mode, extra, sample="plain", outdir=None):
         """One run_pipeline call, its launch counts held to launches per
-        batch x batches, with the one warm-up batch counted apart."""
-        args = ["-o", os.path.join(work, name), "-b", fx["bam"],
-                "-g", fx["genome"], "-m", fx["weights"], "-n", "synthsample",
-                "-s", "3", *extra]
+        batch x batches, with the warm-up batches counted apart."""
+        bam, genome, sample_name, support = SAMPLES[sample]
+        args = ["-o", os.path.join(work, outdir or name), "-b", fx[bam],
+                "-g", fx[genome], "-m", fx["weights"], "-n", sample_name,
+                "-s", support, *extra]
         with counted() as r:
             vcf = cli.run_pipeline(cli.parse_arguments(args))
         recs = _records(vcf)
@@ -918,22 +1009,39 @@ def check_cli(fx: dict, work: str) -> dict:
     gpu_vcf, out["exact"] = run("gpu_exact", "exact", ["--exact"])
     cpu_vcf, out["exact_cpu"] = run("cpu_exact", "exact",
                                     ["--exact", "--device", "cpu"])
-
-    head_g = [l for l in open(gpu_vcf) if l.startswith("#")]
-    head_c = [l for l in open(cpu_vcf) if l.startswith("#")]
-    assert head_g == head_c, "VCF headers differ"
-    rg, rc = _records(gpu_vcf), _records(cpu_vcf)
-    assert len(rg) == len(rc), (len(rg), len(rc))
-    max_dq = 0.0
-    for g, c in zip(rg, rc):
-        gg, gq = _split_qual(g)
-        cc, cq = _split_qual(c)
-        assert gg == cc, f"non-QUAL fields differ:\n{c}{g}"
-        assert abs(gq - cq) <= 15.0, f"QUAL beyond +/-15:\n{c}{g}"
-        max_dq = max(max_dq, abs(gq - cq))
+    n = len(_records(gpu_vcf))
+    max_dq = vcf_qual_delta(gpu_vcf, cpu_vcf)
     out["exact_gpu_vs_cpu_max_qual_delta"] = max_dq
-    log(f"cli --exact GPU vs CPU: {len(rg)} records equal outside QUAL, "
+    log(f"cli --exact GPU vs CPU: {n} records equal outside QUAL, "
         f"max QUAL delta {max_dq}")
+
+    # the optional modes: --exact on the card and on the CPU, each output
+    # tree held to its twin, and once in the default mode on the card
+    out["modes"], out["runs"] = {}, {}
+    t_modes = time.perf_counter()
+    for mode, (sample, extra, runs) in CLI_MODES.items():
+        t0 = time.perf_counter()
+        got = {}
+        for kind, numeric, flags, times in (
+                ("exact", "exact", ["--exact"], runs),
+                ("exact_cpu", "exact", ["--exact", "--device", "cpu"], runs),
+                ("default", "default", [], 1)):
+            for i in range(times):
+                key = f"{mode}_{kind}" + (f"_{i + 1}" if times > 1 else "")
+                _, got[key] = run(key, numeric, extra + flags, sample,
+                                  outdir=f"{mode}_{kind}")
+        held = hold_tree(os.path.join(work, f"{mode}_exact"),
+                         os.path.join(work, f"{mode}_exact_cpu"))
+        out["modes"][mode] = dict(held, wall_s=time.perf_counter() - t0,
+                                  runs=got)
+        out["runs"].update({f"cli_{k}": v for k, v in got.items()
+                            if "_cpu" not in k})
+        log(f"cli {mode}: --exact card vs CPU: {held['vcfs']} VCFs equal "
+            f"outside QUAL (max QUAL delta {held['max_qual_delta']}), "
+            f"{held['other_files']} other files equal byte for byte; "
+            f"{out['modes'][mode]['wall_s']:.1f} s")
+    out["modes_s"] = time.perf_counter() - t_modes
+    log(f"cli optional modes: {out['modes_s']:.1f} s")
     return out
 
 
@@ -2176,6 +2284,7 @@ def main(argv=None) -> int:
 
     runs = {f"engine_{k}": REPORT["engine"][k] for k in ("bf16", "exact")}
     runs.update({f"cli_{k}": REPORT["cli"][k] for k in ("default", "exact")})
+    runs.update(REPORT["cli"]["runs"])
     runs.update(REPORT["serve"]["runs"])
     runs.update(REPORT["shards"]["runs"])
     runs.update(REPORT["train"]["runs"])

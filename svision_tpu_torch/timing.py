@@ -3,7 +3,10 @@ events behind a held queue, CUDA-graph replays, torch.profiler device
 time, the benchmark's random specs, and the card's nvidia-smi line.
 
 chip_smoke.py, bench_torch.py and the scripts/torch_*.py tools import them
-from here, so none of them is a library of another.
+from here, so none of them is a library of another. torch is imported where
+it is used: chip_smoke.py imports this module at its top, and the spawned
+collection workers of the CLI runs it makes (-t N) import chip_smoke.py
+again as their main module, so they stay light.
 """
 
 from __future__ import annotations
@@ -13,7 +16,6 @@ import subprocess
 import time
 
 import numpy as np
-import torch
 
 
 def random_specs(n, seed=0):
@@ -58,6 +60,7 @@ def held_queue(sleep_cycles: int = 500_000_000):
     empty, and its events would time the host. Fails if the host took
     longer to enqueue than the device slept. Yields a dict that gets
     host_ms, the time the host took to enqueue."""
+    import torch
     torch.cuda.synchronize()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
@@ -77,6 +80,7 @@ def held_queue(sleep_cycles: int = 500_000_000):
 def time_ms(fn, reps: int = 20) -> float:
     """Mean device time of fn() in ms over reps launches run back to back
     (CUDA events, the queue held), after two warm-up calls."""
+    import torch
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -104,6 +108,7 @@ def graph_ms(fn, device, reps: int = 20, best_of: int = 3) -> float:
                 fn()
             best = min(best, (time.perf_counter() - t0) / reps * 1e3)
         return best
+    import torch
     from svision_tpu_torch import graphs
     fn()
     torch.cuda.synchronize(device)
@@ -123,6 +128,16 @@ def on_device(e) -> bool:
             and ("#" not in e.key or "{lambda(" in e.key))
 
 
+def union_length(spans) -> float:
+    """The length that (start, end) intervals cover together."""
+    total, last = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > last:
+            total += end - max(start, last)
+            last = end
+    return total
+
+
 def device_time(prof, wall_ms: float, what: str):
     """({kernel: device ms}, device busy ms) of a torch.profiler run: busy
     is the union of the traced kernels' and copies' intervals (copies
@@ -135,15 +150,10 @@ def device_time(prof, wall_ms: float, what: str):
         if us is None:
             us = e.self_cuda_time_total
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if on_device(e))
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if on_device(e)]
     assert spans, f"{what}: no device activity traced"
-    busy_us, last = 0.0, float("-inf")
-    for start, end in spans:
-        if end > last:
-            busy_us += end - max(start, last)
-            last = end
-    busy_ms = busy_us / 1e3
+    busy_ms = union_length(spans) / 1e3
     assert busy_ms <= wall_ms, (
         f"{what}: {busy_ms} ms on the device > {wall_ms} ms wall")
     return per_kernel, busy_ms

@@ -228,6 +228,32 @@ def test_e2e_collect_only_matches_jax(e2e_dirs, capsys, monkeypatch):
         assert got[k] == want[k], k
 
 
+def test_e2e_trace_busy(tmp_path):
+    """--profile's reading of the CLI's trace: the union of the device's
+    kernel and copy intervals; host events do not count."""
+    e2e = load_script("torch_e2e_bench")
+    path = str(tmp_path / "trace.json")
+    events = [
+        dict(ph="X", cat="kernel", name="k", ts=100, dur=10),
+        dict(ph="X", cat="gpu_memcpy", name="Memcpy HtoD", ts=105, dur=10),
+        dict(ph="X", cat="kernel", name="k", ts=120, dur=5),
+        dict(ph="X", cat="gpu_memset", name="Memset", ts=121, dur=1),
+        dict(ph="X", cat="cpu_op", name="aten::conv2d", ts=0, dur=500),
+        dict(ph="i", cat="kernel", name="k", ts=300)]
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": events}, fh)
+    got = e2e.trace_busy(path)
+    assert got["device_busy_ms"] == pytest.approx(0.020)
+    assert got["device_span_ms"] == pytest.approx(0.025)
+    assert got["device_ops"] == 4
+    assert got["top_ms"] == pytest.approx(
+        {"k": 0.015, "Memcpy HtoD": 0.010, "Memset": 0.001})
+    with open(path, "w") as fh:
+        json.dump({"traceEvents": events[4:]}, fh)
+    with pytest.raises(ValueError, match="no device activity"):
+        e2e.trace_busy(path)
+
+
 @pytest.mark.parametrize("hosts,rounds,want", [
     (2, 1, [1, 2]), (2, 2, [1, 2, 2, 1]), (3, 3, [1, 3, 3, 1, 1, 3])])
 def test_scaling_bench_alternates_its_configs(hosts, rounds, want):
