@@ -13,13 +13,17 @@ Phases, each of which fails the run with a non-zero exit on any check:
   2. hold each kernel against its plain PyTorch version on the card, at the
      engine's batch of 128 and in both dtypes, and time both; K1 also on
      fit_device's fragmented four segments an image, and checked at
-     batches of 1 and 129 and on an all-dark batch; K3 bf16 also at
-     batches of 1, 129 and 8,192 and on an all-dark batch;
+     batches of 1 and 129 and on an all-dark batch; K3 also on an all-dark
+     batch, bf16 at batches of 1, 129 and 8,192, f32 at 1, 129 and 4,096
+     and on a densely lit batch, with the route K3 f32 stands for in the
+     exact step (K1's images, then conv1 through cuDNN) timed beside it;
   3. run the InferenceEngine in both numeric modes: its CUDA graphs bit for
      bit against its eager step at 1, 128, 129, 17 x 128 + 5, chunk + 20
      batches and 8,192 specs, images/s graphed and eager, and 8,192 specs
      against an all-plain engine built and captured with its kernels
-     swapped for their plain versions; then profile one call in each mode,
+     swapped for their plain versions; the exact step's two routes (the
+     engine's, and K3 in f32 into the folded network) against the CPU
+     exact engine on those specs; then profile one call in each mode,
      graphed and eager (device time by kernel, idle share);
   4. drive the CLI path (svision_tpu_torch.cli.run_pipeline) on a
      synthetic genome + BAM with seeded random weights, in the default bf16
@@ -63,7 +67,8 @@ Phases, each of which fails the run with a non-zero exit on any check:
   9. run the port's tools: bench_torch.py at 64 batches (its line
      parsed), scripts/torch_e2e_bench.py at 1 x 1 Mb (its VCF
      truvari-scored against itself, f1 1.0), scripts/torch_roofline.py
-     at batch 128, the graft entry's fused step (__graft_entry_torch__)
+     at batch 128 (the default step, then the exact step by its two routes
+     with --exact), the graft entry's fused step (__graft_entry_torch__)
      against its CPU run (at the bf16 bar on the bar's weights; on its
      default weights the f32 network on both, and the card's bf16 within
      the CPU's own bf16-to-f32 departure), and dryrun_multichip(1).
@@ -401,6 +406,8 @@ def check_kernels(params, dense_k3) -> dict:
                 lit_fraction=lit.count_nonzero().item() / lit.numel(),
                 cudnn_conv2d_on_s2d_raster_ms=time_ms(
                     lambda: F.conv2d(r_nchw, w_oihw))))
+            if kind == "f32":
+                variants[-1].update(k3_f32_checks(params, (ep, vis, rev), w))
         if kind == "bf16":
             variants[-1].update(k3_bf16_checks(dense_k3, (ep, vis, rev), w,
                                                lit, got))
@@ -514,6 +521,57 @@ def k3_bf16_checks(dense_k3, seg, w, lit, got) -> dict:
     return out
 
 
+def k3_f32_checks(params, seg, w) -> dict:
+    """K3 f32 beyond batch 128, under exact_f32(): batches of 1, 129 and
+    4,096 (the striped items' ragged split over the SMs) and a densely lit
+    batch (timing.diagonal_specs: 3-4x the lit terms of random specs),
+    each within 1e-4 of the plain version's largest output, the dense one
+    and 4,096 timed; and the route K3 f32 stands for in the exact step,
+    timed: K1's f32 images, then conv1 11x11/4 through cuDNN as
+    AlexNet.forward runs it (NCHW weights on channels_last input, with
+    cuDNN's layout conversions), no bias."""
+    import torch
+    from svision_tpu_torch.models.alexnet import AlexNet
+    from svision_tpu_torch.ops import fused_conv1, rasterize
+    from svision_tpu_torch.ops.raster_kernel import render_images
+    from svision_tpu_torch.timing import diagonal_specs
+    dev = w.device
+    model = AlexNet.from_params(params, device=dev)
+    out = dict(k1_cudnn_route_ms=time_ms(lambda: model._conv(
+        model.conv1, render_images(*seg).permute(0, 3, 1, 2), bias=False)))
+    batches = []
+    for b, case in ((1, "random"), (129, "random"), (4096, "random"),
+                    (B, "dense")):
+        if case == "dense":
+            specs = diagonal_specs(b, seed=0)
+        else:
+            specs = random_specs(b, seed=5)
+            k = min(b, len(DEGENERATE))
+            specs[:k] = np.array(DEGENERATE, np.int64)[:k]
+        ep, vis, rev = (torch.from_numpy(a).to(dev)
+                        for a in rasterize.specs_to_endpoints(specs))
+        y = fused_conv1.conv1_fused_raster(ep, vis, rev, w)
+        err = scale = 0.0
+        for i in range(0, ep.shape[0], 1024):   # the plain version in chunks
+            want = fused_conv1.conv1_fused_raster_plain(
+                ep[i:i + 1024], vis[i:i + 1024], rev[i:i + 1024], w)
+            err = max(err, (y[i:i + 1024] - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+        assert err <= 1e-4 * scale, \
+            f"K3 f32 B={b} {case}: {err} > 1e-4 * {scale}"
+        batches.append(dict(batch=b, case=case, max_abs_err=err,
+                            max_abs_out=scale))
+        if b >= B:
+            batches[-1]["ms"] = time_ms(
+                lambda: fused_conv1.conv1_fused_raster(ep, vis, rev, w),
+                reps=5 if b > B else 20)
+            batches[-1]["bound_ms"] = bound_ms(nbytes(ep, vis, rev, w, y), 0,
+                                               "f32")[0]
+        del y
+    out["batches"] = batches
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine against an all-plain engine
 # ---------------------------------------------------------------------------
@@ -605,6 +663,7 @@ def check_engine(params) -> dict:
         else:
             assert agree == 1.0, f"exact engine: argmax agreement {agree}"
             assert soft_err <= 1e-4, f"exact engine: softmax err {soft_err}"
+            out["exact_routes"] = exact_routes(params, specs, p, s)
         assert np.isfinite(s).all() and ((s > 0) & (s <= 1)).all()
         out[mode] = dict(images_per_s=best, eager_images_per_s=eager,
                          plain_images_per_s=plain_rate,
@@ -617,6 +676,50 @@ def check_engine(params) -> dict:
                          n=int(specs.shape[0]), batch=B)
         log(f"engine {mode} ({REPORT['device']['nvidia_smi']}): {out[mode]}")
         torch.cuda.empty_cache()
+    return out
+
+
+def exact_routes(params, specs, p, s) -> dict:
+    """The exact step's two routes on the card against the CPU exact engine
+    (the JAX engine's unfolded form) on the same specs: the engine's (K1
+    and cuDNN; its outputs p, s) and the fused route (engine.fused_logits
+    on the folded f32 weights: K3 in f32), run eagerly batch by batch
+    under exact_f32(). Both must agree on every argmax; each route's
+    softmax departure from the CPU is recorded beside them (the engine
+    takes the fused route only if it holds the CPU within 1e-5: PERF.md,
+    Findings)."""
+    import torch
+    from svision_tpu_torch.infer.engine import (InferenceEngine, exact_f32,
+                                                fused_logits)
+    from svision_tpu_torch.models.alexnet import AlexNet, fold_conv1_params
+    from svision_tpu_torch.ops import rasterize
+    t0 = time.perf_counter()
+    cpu = InferenceEngine(params, batch_size=B, bf16=False, device="cpu")
+    cp, cs = cpu.predict_specs(specs)
+    cpu_s = time.perf_counter() - t0
+    model = AlexNet.from_params(fold_conv1_params(params), s2d=True,
+                                device="cuda")
+    w = model.conv1_weight_hwio()
+    ep, vis, rev = (torch.from_numpy(a).cuda()
+                    for a in rasterize.specs_to_endpoints(specs))
+    fp, fs = [], []
+    with torch.inference_mode(), exact_f32():
+        for i in range(0, specs.shape[0], B):
+            logits = fused_logits(model, w, ep[i:i + B], vis[i:i + B],
+                                  rev[i:i + B])
+            fp.append(logits.argmax(dim=1))
+            fs.append(torch.softmax(logits, dim=1).amax(dim=1))
+    fp, fs = torch.cat(fp).cpu().numpy(), torch.cat(fs).cpu().numpy()
+    out = dict(cpu_s=cpu_s, n=int(specs.shape[0]),
+               engine_vs_cpu=agreement(p, s, cp, cs),
+               fused_vs_cpu=agreement(fp, fs, cp, cs),
+               fused_vs_engine=agreement(fp, fs, p, s))
+    for route in ("engine", "fused"):
+        d = np.abs((s if route == "engine" else fs) - cs)
+        out[f"{route}_vs_cpu"]["specs_over_1e-5"] = int((d > 1e-5).sum())
+    log(f"exact routes against the CPU exact engine: {out}")
+    assert out["engine_vs_cpu"]["argmax_agreement"] == 1.0, out
+    assert out["fused_vs_cpu"]["argmax_agreement"] == 1.0, out
     return out
 
 
@@ -2105,6 +2208,13 @@ def check_tools(work: str) -> dict:
                if v), r["launches"]
     log(f"roofline at batch {B}: {roof['flops_per_image']} FLOPs an image")
     out["roofline"], runs["tools_roofline"] = roof, r
+    # the exact step by stage, by both routes (K1 and cuDNN; K3 in f32): a
+    # measurement, not a main-path run, so its launches stay off the line
+    with counted() as r:
+        roof = torch_roofline.main(["--batch", str(B), "--exact"])
+    assert all(x["cum_ms"] > 0 for x in roof["sections"]), roof["sections"]
+    assert all(r["launches"][k] > 0 for k in r["launches"]), r["launches"]
+    out["roofline_exact"] = dict(roof, launches=r["launches"])
     seconds["roofline"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

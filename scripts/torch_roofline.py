@@ -15,14 +15,28 @@ itself runs):
   +fc/head (full)   fc6-8, argmax and max softmax: the whole step
 (K3 renders its own raster, so "+conv1blk" does not contain "raster".)
 
+With --exact it times the exact f32 step instead (TF32 off, exact_f32),
+by two routes, each line naming its route:
+  k1_cudnn (the engine's exact step, InferenceEngine(bf16=False)):
+    raster          K1's f32 images (render_images)
+    +conv1          conv1 11x11/4 through cuDNN, NCHW weights on
+                    channels_last input, as AlexNet.forward runs it
+    +conv1blk ...   then the stages above, to the whole step
+  k3 (the fused route, engine.fused_logits on the folded f32 weights):
+    conv1 (K3)      K3 in f32, from the endpoints
+    +conv1blk ...   then the same stages.
+
 FLOPs are counted in closed form, 2 x the multiply-accumulates of every
 conv and fc layer of the reference network (conv1 as 11x11x3 at 55x55),
-and read against the card's bf16 dense tensor-core peak; bytes are the
-least a prefix must move (its inputs and weights read once, its output
-written once) against the HBM rate. The whole step's FLOPs per image are
-printed too.
+and read against the card's dense peak for the step's dtype (bf16 tensor
+cores; f32 CUDA cores with --exact); bytes are the least a prefix must
+move (its inputs and weights read once, its output written once) against
+the HBM rate. The k3 route's conv1 counts the work this batch needs, as
+chip_smoke's phase 2 does: K3 f32 adds a weight for each lit term under
+an output's window and each output channel, and skips the rest. The
+whole step's FLOPs per image are printed too.
 
-    python scripts/torch_roofline.py [--batch 1024] [--reps 20]
+    python scripts/torch_roofline.py [--batch 1024] [--reps 20] [--exact]
         [--device cuda|cpu] [--peak-flops F --hbm-bw B]
 
 The card's peaks are named below for the "NVIDIA H100 80GB HBM3" (SXM5);
@@ -32,6 +46,7 @@ are host-clock means and no share is given. Prints one JSON line per
 prefix, then one summary line.
 """
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -42,10 +57,18 @@ sys.path.insert(0, ROOT)
 # NVIDIA H100 datasheet, SXM5: 1,979 TFLOP/s bf16 with sparsity, half that
 # dense; 3.35 TB/s HBM3
 PEAKS = {"NVIDIA H100 80GB HBM3": (989.4e12, 3.35e12)}
+# the same datasheet: 67 TFLOP/s f32 outside the tensor cores
+F32_FLOPS = {"NVIDIA H100 80GB HBM3": 67e12}
 
 # (label, how many of AlexNet.stages() follow K3; 0: the plain raster)
 STAGES = (("raster", 0), ("+conv1blk", 1), ("+conv2blk", 2), ("+conv3", 3),
           ("+conv4", 4), ("+conv5+pool", 5), ("+fc/head (full)", 6))
+# --exact: route -> (label, how many of AlexNet.stages() follow conv1;
+# None: K1's images alone)
+EXACT_STAGES = {
+    "k1_cudnn": (("raster", None), ("+conv1", 0)) + STAGES[1:],
+    "k3": (("conv1 (K3)", 0),) + STAGES[1:],
+}
 
 
 def layer_macs():
@@ -101,13 +124,62 @@ def build_prefix(model, w_s2d, n_stages):
     return run
 
 
+def exact_layers(n_stages):
+    """The layers an exact prefix runs: none for K1's images alone, conv1
+    with it, then the stages' (conv1 among them)."""
+    if n_stages is None:
+        return []
+    return stage_layers(n_stages) if n_stages else ["conv1"]
+
+
+def build_exact_prefix(model, n_stages, w_s2d=None):
+    """fn(ep, vis, rev) -> an exact prefix's output. Given w_s2d, the
+    fused route on the folded network (s2d=True): K3 in f32, then the first
+    n_stages of forward_conv1's stages. Without it, the engine's exact step
+    on the unfolded network: K1's images (alone for n_stages None), conv1
+    as AlexNet.forward runs it, then n_stages stages. With all of them, the
+    step's (argmax, max softmax). Run it under exact_f32()."""
+    import torch
+    from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
+    from svision_tpu_torch.ops.raster_kernel import render_images
+    full = n_stages == len(model.stages())
+
+    def run(ep, vis, rev):
+        if w_s2d is not None:
+            pre = conv1_fused_raster(ep, vis, rev, w_s2d)
+        else:
+            x = render_images(ep, vis, rev, dtype=torch.float32)
+            if n_stages is None:
+                return x
+            pre = model._conv(model.conv1, x.permute(0, 3, 1, 2),
+                              bias=False).permute(0, 2, 3, 1)
+        h = model.forward_conv1(pre, n_stages)
+        if full:
+            return h.argmax(dim=1), torch.softmax(h, dim=1).amax(dim=1)
+        return h
+    return run
+
+
+def conv1_lit_macs(ep, vis, rev):
+    """K3 f32's multiply-accumulates on a batch: the lit s2d predicate terms
+    under every output's 3x3x48 window, times 96 output channels."""
+    import torch
+    import torch.nn.functional as F
+    from svision_tpu_torch.ops import rasterize
+    lit = rasterize.render_raster_s2d(ep, vis, rev, dtype=torch.float32)
+    ones = torch.ones((1, lit.shape[3], 3, 3), device=lit.device)
+    return 96 * int(F.conv2d(lit.permute(0, 3, 1, 2), ones).sum().item())
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def peaks(label, peak_flops=None, hbm_bw=None):
-    """(FLOP/s, B/s) of the card named by nvidia-smi's line: given, or
-    from PEAKS; raises for an unnamed card; None on the CPU."""
+def peaks(label, peak_flops=None, hbm_bw=None, f32=False):
+    """(FLOP/s, B/s) of the card named by nvidia-smi's line, the FLOP/s
+    those of bf16 tensor cores, or of f32 CUDA cores given f32: given, or
+    from PEAKS and F32_FLOPS; raises for an unnamed card; None on the
+    CPU."""
     if label == "cpu":
         return None
     if peak_flops and hbm_bw:
@@ -116,7 +188,7 @@ def peaks(label, peak_flops=None, hbm_bw=None):
     if name not in PEAKS:
         raise SystemExit(f"no peaks known for {name!r}: pass --peak-flops "
                          "and --hbm-bw")
-    return PEAKS[name]
+    return (F32_FLOPS[name], PEAKS[name][1]) if f32 else PEAKS[name]
 
 
 def main(argv=None):
@@ -125,9 +197,12 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--exact", action="store_true",
+                    help="time the exact f32 step by its two routes")
     ap.add_argument("--peak-flops", type=float, default=None,
-                    help="the card's dense bf16 FLOP/s (required for a "
-                    "card not in PEAKS)")
+                    help="the card's dense FLOP/s in the step's dtype, "
+                    "bf16 or f32 with --exact (required for a card not in "
+                    "PEAKS)")
     ap.add_argument("--hbm-bw", type=float, default=None,
                     help="the card's memory rate in B/s (with --peak-flops)")
     args = ap.parse_args(argv)
@@ -136,44 +211,70 @@ def main(argv=None):
     from svision_tpu_torch.timing import device_label, random_specs
     from svision_tpu_torch.timing import graph_ms
     from svision_tpu_torch.device import resolve_device
-    from svision_tpu_torch.models.alexnet import (AlexNet, fold_params_bf16,
+    from svision_tpu_torch.infer.engine import exact_f32
+    from svision_tpu_torch.models.alexnet import (AlexNet, fold_conv1_params,
+                                                  fold_params_bf16,
                                                   init_params)
     from svision_tpu_torch.ops import rasterize
 
     dev = resolve_device(args.device)
     label = device_label(dev)
-    peak = peaks(label, args.peak_flops, args.hbm_bw)
-    model = AlexNet.from_params(fold_params_bf16(init_params(0)), s2d=True,
-                                device=dev)
-    w_s2d = model.conv1_weight_hwio()
+    peak = peaks(label, args.peak_flops, args.hbm_bw, f32=args.exact)
     ep, vis, rev = (torch.from_numpy(a).to(dev) for a in
                     rasterize.specs_to_endpoints(random_specs(args.batch, 0)))
-    weights = {name: nbytes(getattr(model, name).parameters())
-               for name in layer_macs()}
-    weights["conv1"] = nbytes((w_s2d, model.conv1.bias))
+    # route -> [(label, prefix fn, its layers)], the weights' bytes, and
+    # the MACs of a layer where the route's kernel does less than the
+    # reference layer (K3 f32: the lit terms only)
+    routes, weights = {}, {}
+    macs = {route: {k: v * args.batch for k, v in layer_macs().items()}
+            for route in ("s2d_bf16",) + tuple(EXACT_STAGES)}
+    if args.exact:
+        params = init_params(0)
+        for route, stages in EXACT_STAGES.items():
+            fused = route == "k3"
+            model = AlexNet.from_params(
+                fold_conv1_params(params) if fused else params, s2d=fused,
+                device=dev)
+            w_s2d = model.conv1_weight_hwio() if fused else None
+            routes[route] = [(lab, build_exact_prefix(model, n, w_s2d),
+                              exact_layers(n)) for lab, n in stages]
+            weights[route] = layer_bytes(model, w_s2d)
+        macs["k3"]["conv1"] = conv1_lit_macs(ep, vis, rev)
+    else:
+        model = AlexNet.from_params(fold_params_bf16(init_params(0)),
+                                    s2d=True, device=dev)
+        w_s2d = model.conv1_weight_hwio()
+        routes["s2d_bf16"] = [(lab, build_prefix(model, w_s2d, n),
+                               stage_layers(n)) for lab, n in STAGES]
+        weights["s2d_bf16"] = layer_bytes(model, w_s2d)
 
-    lines, prev_ms = [], 0.0
-    with torch.inference_mode():
-        for label_s, n_stages in STAGES:
-            fn = build_prefix(model, w_s2d, n_stages)
-            ms = graph_ms(lambda: fn(ep, vis, rev), dev, reps=args.reps)
-            out = fn(ep, vis, rev)
-            flops = stage_flops(n_stages) * args.batch
-            moved = nbytes((ep, vis, rev)) + nbytes(
-                out if isinstance(out, tuple) else (out,)) + sum(
-                weights[k] for k in stage_layers(n_stages))
-            line = {"section": label_s, "cum_ms": ms,
-                    "section_ms": ms - prev_ms,
-                    "images_per_s": args.batch / ms * 1e3,
-                    "flops": flops, "bytes": moved}
-            if peak:
-                bound = max(flops / peak[0], moved / peak[1]) * 1e3
-                line.update(tensor_core_share=flops / (ms / 1e3) / peak[0],
-                            bound_ms=bound, bound_share=bound / ms)
-            print(json.dumps(line), flush=True)
-            lines.append(line)
-            prev_ms = ms
+    lines = []
+    with torch.inference_mode(), (exact_f32() if args.exact
+                                  else contextlib.nullcontext()):
+        for route, prefixes in routes.items():
+            prev_ms = 0.0
+            for label_s, fn, layers in prefixes:
+                ms = graph_ms(lambda: fn(ep, vis, rev), dev, reps=args.reps)
+                out = fn(ep, vis, rev)
+                flops = sum(2 * macs[route][k] for k in layers)
+                moved = nbytes((ep, vis, rev)) + nbytes(
+                    out if isinstance(out, tuple) else (out,)) + sum(
+                    weights[route][k] for k in layers)
+                line = {"section": label_s, "cum_ms": ms,
+                        "section_ms": ms - prev_ms,
+                        "images_per_s": args.batch / ms * 1e3,
+                        "flops": flops, "bytes": moved}
+                if args.exact:
+                    line = {"route": route, **line}
+                if peak:
+                    bound = max(flops / peak[0], moved / peak[1]) * 1e3
+                    line.update(peak_share=flops / (ms / 1e3) / peak[0],
+                                bound_ms=bound, bound_share=bound / ms)
+                print(json.dumps(line), flush=True)
+                lines.append(line)
+                prev_ms = ms
     summary = {"batch": args.batch, "reps": args.reps, "device": label,
+               "exact": args.exact,
                "peak_flops": peak[0] if peak else None,
                "hbm_bw": peak[1] if peak else None,
                "flops_per_image": stage_flops(len(STAGES) - 1),
@@ -181,6 +282,15 @@ def main(argv=None):
     print(json.dumps(summary), flush=True)
     return {"sections": lines, **summary}
 
+
+def layer_bytes(model, w_s2d):
+    """{layer: bytes of its weights and bias}; conv1 the folded weights'
+    when given w_s2d."""
+    out = {name: nbytes(getattr(model, name).parameters())
+           for name in layer_macs()}
+    if w_s2d is not None:
+        out["conv1"] = nbytes((w_s2d, model.conv1.bias))
+    return out
 
 if __name__ == "__main__":
     main()

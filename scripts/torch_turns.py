@@ -50,11 +50,13 @@ def measure(root: str, engines_only: bool = False) -> dict:
     """One process's measurements, with root's package."""
     import importlib.util
     sys.path.insert(0, root)
+    # root's package first: chip_smoke imports its timing helpers from the
+    # package, with its own checkout first on the path
+    import svision_tpu_torch
     spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     import torch
-    import svision_tpu_torch
     from svision_tpu_torch.infer.engine import InferenceEngine
     from svision_tpu_torch.models.alexnet import init_params
     pkg = os.path.dirname(os.path.abspath(svision_tpu_torch.__file__))

@@ -6,13 +6,14 @@
 // svision_tpu_torch/ops/fused_conv1.py:conv1_fused_raster_plain, that is
 // render_raster_s2d followed by a 3x3 VALID conv with w_s2d [3,3,48,96].
 //
-// Bound on an H100 at B=128: bytes. The bf16 output is 74.3 MB, 22 us at
-// 3.35 TB/s. Each image is two clipped segments, so under 1% of the
-// predicate is lit and the operations this data needs take far less. Done
-// densely, the implicit GEMM [N*55*55, 432] x [432, 96] is 32.1 GFLOP,
-// 32 us on bf16 tensor cores, a floor above the byte bound. So the MMAs run
-// on tensor cores, only over the K steps that hold a lit value, and the
-// output write streams out behind them. Times: PERF.md.
+// Bound on an H100 at B=128: bytes. The output is 74.3 MB in bf16 (22 us
+// at 3.35 TB/s) and 148.7 MB in f32 (44 us). Each image is two clipped
+// segments, so under 1% of the predicate is lit and the operations this
+// data needs take far less. Done densely, the implicit GEMM [N*55*55, 432]
+// x [432, 96] is 32.1 GFLOP: 32 us on bf16 tensor cores, 479 us as f32 FMAs,
+// both floors above the byte bound. So both dtypes multiply only where the
+// predicate is lit, and the output write streams out behind them. Times:
+// PERF.md.
 //
 // bf16, the engine's fast path: a wgmma implicit GEMM (namespace tc).
 //  * Persistent grid, one 384-thread block per SM: a producer warpgroup
@@ -41,11 +42,27 @@
 //    dropping the padding column 55 and row 55, while the other warpgroup
 //    multiplies.
 //
-// f32 (namespace simt): the first version's CUDA-core kernel. No main path
-// reaches it: the engine's --exact path renders with K1 and convolves with
-// cuDNN. 252 threads each own 8 consecutive output pixels of one band row x
-// 8 output channels (64 f32 accumulators); per (kernel row, input channel)
-// 10 predicate values and 3 weight vectors from shared memory feed 192 FMAs.
+// f32 (namespace simt): the sums on CUDA cores, over the lit terms only.
+// TF32 would miss the f32 bar, and a three-way bf16 split of the weights
+// would need three 83 KB B operands, more than a block's shared memory. The
+// predicate is {0,1}, so every product is a weight exactly: an output is
+// the sum of the weight rows of its lit (tap, channel) terms, and the dark
+// terms, exact zeros, are skipped without changing it.
+//  * Persistent grid, one 1024-thread block per SM, which takes every
+//    gridDim.x-th item (image, band of 8 output rows), so that the bands of
+//    a heavily lit image spread over the SMs. The consumers copy the f32
+//    weights [432][96] (162 KB) into shared memory once, with cp.async.
+//  * A producer of four warps builds each band's lists in shared memory
+//    from the closed-form run tables: per s2d cell a 48-bit mask of its lit
+//    channels, then per output pixel a 9-bit mask of the taps whose cell
+//    holds one. They are double buffered (named barriers): the next band's
+//    lists are built while the consumers write this one.
+//  * The band's output is one contiguous run of float4s. 28 consumer warps
+//    stream it out with 16-byte __stcs stores: 12 threads a pixel, each
+//    holding 2 of its 24 channel quads, so neighbouring threads store
+//    neighbouring quads. A pixel with no lit tap stores zeros; a lit one
+//    first adds the thread's weight quads of each lit term, one term a
+//    step (scripts/torch_k3_variants.py times the other choices).
 
 #include <cstdint>
 
@@ -59,6 +76,18 @@ constexpr int kCin = 48;              // s2d channels (c, p, q)
 constexpr int kCout = 96;
 constexpr int kTaps = 9;
 constexpr int kK = kTaps * kCin;      // 432, the GEMM's depth
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma implicit GEMM
@@ -95,18 +124,6 @@ constexpr int kBarEmpty = 3;      // + buffer: predicate consumed
 constexpr int kBarProducer = 5;   // the producer's run tables
 constexpr int kBarStage = 6;      // + consumer: its staging buffer
 constexpr int kBarWeights = 8;    // the consumers: B copied
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
 
 // Makes this thread's shared-memory stores visible to wgmma, which reads
 // its operands through the async proxy.
@@ -406,135 +423,206 @@ int launch(const void* ep, const void* vis, const void* rev, const void* w,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: only the lit terms, on CUDA cores
 // ---------------------------------------------------------------------------
 namespace simt {
 
-constexpr int kBand = 3;              // output rows per work item
-constexpr int kBands = (kOut + kBand - 1) / kBand;   // 19
-constexpr int kPredRows = kBand + 2;
-constexpr int kPredCols = 60;         // >= 7 groups * 8 + 2, zero padded
-constexpr int kPixRows = 4 * kPredRows;
-constexpr int kPixCols = 4 * kPredCols;
-constexpr int kGroups = 7;            // 8-pixel groups per output row
-constexpr int kChanGroups = kCout / 8;                // 12
-constexpr int kWorkers = kChanGroups * kGroups * kBand;  // 252
-constexpr int kThreads = 256;
-constexpr size_t kSmem = sizeof(float) * kK * kCout                 // weights
-                         + sizeof(__nv_bfloat16) * kCin * kPredRows * kPredCols
-                         + sizeof(int) * (2 * svt::kSegs * kPixRows + kPixCols);
+constexpr int kBand = 8;                                 // output rows / item
+constexpr int kBands = (kOut + kBand - 1) / kBand;       // 7
+constexpr int kPredRows = kBand + 2;                     // 10
+constexpr int kPixRows = 4 * kPredRows;                  // 40
+constexpr int kPixCols = 4 * kS2d;                       // 228
+constexpr int kCells = kPredRows * kS2d;                 // 570
+constexpr int kPixels = kBand * kOut;                    // 440
+constexpr int kQuads = kCout / 4;                        // 24 float4 a pixel
+constexpr int kLaneQuads = 2;                 // float4s a consumer thread owns
+constexpr int kPixThreads = kQuads / kLaneQuads;         // threads a pixel
+constexpr int kProducers = 128;
+constexpr int kConsumers = 896;
+constexpr int kThreads = kProducers + kConsumers;
+constexpr int kTableInts = 2 * svt::kSegs * kPixRows + kPixCols;
+constexpr size_t kWBytes = sizeof(float) * kK * kCout;   // 165,888 B
+constexpr size_t kMaskBytes = sizeof(uint64_t) * kCells;  // 4,560 B
+constexpr size_t kTapBytes = sizeof(uint16_t) * kPixels;  // 880 B
+constexpr size_t kSmem = kWBytes + 2 * kMaskBytes + 2 * kTapBytes
+                         + sizeof(int) * kTableInts;     // 178,880 B
 
-__device__ __forceinline__ void load8(const float* p, float* w) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+// named barriers (0 is __syncthreads)
+constexpr int kBarFull = 1;       // + buffer: lists built
+constexpr int kBarEmpty = 3;      // + buffer: lists consumed
+constexpr int kBarProducer = 5;   // the producer's run tables
+constexpr int kBarWeights = 6;    // the consumers: weights copied
+
+// The producer warps (ptid 0..127) build the lists of band oy0 of the image
+// with segments a and b:
+//  * mask[prow * 57 + pcol]: bit k = ch*16 + p*4 + q of s2d cell (oy0 + prow,
+//    pcol) is set where that predicate value is lit (pixel (4*(oy0 + prow)
+//    + p, 4*pcol + q), channel ch);
+//  * taps[g * 55 + ox]: bit dr*3 + dc is set where output pixel (oy0 + g,
+//    ox) reads a cell (oy0 + g + dr, ox + dc) with a lit value.
+__device__ void build_lists(const svt::Seg& a, const svt::Seg& b, int oy0,
+                            uint64_t* mask, uint16_t* taps, int* tables,
+                            int ptid) {
+  using namespace svt;
+  int* clo_s = tables;
+  int* chi_s = clo_s + kSegs * kPixRows;
+  int* rows_s = chi_s + kSegs * kPixRows;   // lit rows per pixel column
+  bar_sync(kBarProducer, kProducers);   // the previous band is done with them
+  for (int i = ptid; i < kSegs * kPixRows; i += kProducers) {
+    row_run(i < kPixRows ? a : b, 4 * oy0 + i % kPixRows, clo_s[i], chi_s[i]);
+  }
+  for (int c = ptid; c < kPixCols; c += kProducers) {
+    rows_s[c] = col_rows(a, b, c);
+  }
+  bar_sync(kBarProducer, kProducers);
+
+  // one thread a cell: four compares against the row runs find a dark one
+  for (int cell = ptid; cell < kCells; cell += kProducers) {
+    const int prow = cell / kS2d, pcol = cell % kS2d;
+    const int lr0 = 4 * prow, c0 = 4 * pcol;
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < 4 * kSegs; ++i) {
+      const int r = (i / 4) * kPixRows + lr0 + i % 4;
+      any |= clo_s[r] <= c0 + 3 && chi_s[r] >= c0;
+    }
+    uint64_t m = 0;
+    if (any && oy0 + prow < kS2d) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int lr = lr0 + p;
+        const int alo = clo_s[lr], ahi = chi_s[lr];
+        const int blo = clo_s[kPixRows + lr], bhi = chi_s[kPixRows + lr];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = c0 + q;
+          const bool la = in_run(c, alo, ahi);
+          const bool lb = in_run(c, blo, bhi);
+          const bool l0 = la || lb;
+          const bool l1 = l0 && rows_s[c] >= 2;
+          const bool l2 = (la && a.rev) || (lb && b.rev);
+          const int bit = p * 4 + q;
+          m |= (static_cast<uint64_t>(l0) << bit)
+               | (static_cast<uint64_t>(l1) << (16 + bit))
+               | (static_cast<uint64_t>(l2) << (32 + bit));
+        }
+      }
+    }
+    mask[cell] = m;
+  }
+  bar_sync(kBarProducer, kProducers);
+
+  for (int px = ptid; px < kPixels; px += kProducers) {
+    const int g = px / kOut, ox = px % kOut;
+    uint32_t t = 0;
+#pragma unroll
+    for (int tap = 0; tap < kTaps; ++tap) {
+      if (mask[(g + tap / 3) * kS2d + ox + tap % 3]) t |= 1u << tap;
+    }
+    taps[px] = static_cast<uint16_t>(t);
+  }
 }
 
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 conv1_raster_f32(const int* __restrict__ ep,
                  const unsigned char* __restrict__ vis,
                  const unsigned char* __restrict__ rev,
                  const float* __restrict__ w, float* __restrict__ out,
                  int n_img) {
-  using namespace svt;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* w_s = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* pred = reinterpret_cast<__nv_bfloat16*>(
-      smem + sizeof(float) * kK * kCout);
-  int* clo_s = reinterpret_cast<int*>(pred + kCin * kPredRows * kPredCols);
-  int* chi_s = clo_s + kSegs * kPixRows;
-  int* rows_s = chi_s + kSegs * kPixRows;   // lit rows per pixel column
-
+  const float* w_s = reinterpret_cast<const float*>(smem);
+  uint64_t* mask_s = reinterpret_cast<uint64_t*>(smem + kWBytes);
+  uint16_t* taps_s = reinterpret_cast<uint16_t*>(smem + kWBytes
+                                                 + 2 * kMaskBytes);
+  int* tables = reinterpret_cast<int*>(smem + kWBytes + 2 * kMaskBytes
+                                       + 2 * kTapBytes);
   const int tid = threadIdx.x;
-  {
-    const int n16 = kK * kCout * (int)sizeof(float) / 16;
-    const uint4* src = reinterpret_cast<const uint4*>(w);
-    uint4* dst = reinterpret_cast<uint4*>(w_s);
-    for (int i = tid; i < n16; i += kThreads) dst[i] = src[i];
+  // the block's items: every gridDim.x-th, so that the bands of a heavily
+  // lit image spread over the blocks
+  const int items = n_img * kBands;
+
+  if (tid < kProducers) {
+    // producer: build the block's item j's lists into buffer j % 2
+    for (int item = blockIdx.x, j = 0; item < items;
+         item += gridDim.x, ++j) {
+      const int buf = j & 1;
+      if (j >= 2) bar_sync(kBarEmpty + buf, kThreads);
+      const int n = item / kBands;
+      build_lists(svt::load_seg(ep, vis, rev, n, 0),
+                  svt::load_seg(ep, vis, rev, n, 1), (item % kBands) * kBand,
+                  mask_s + buf * kCells, taps_s + buf * kPixels, tables, tid);
+      bar_arrive(kBarFull + buf, kThreads);
+    }
+    return;
   }
 
-  // this thread's GEMM tile: 8 output channels x 8 pixels of one band row
-  const int cg = tid % kChanGroups;
-  const int pg = tid / kChanGroups;
-  const int brow = pg / kGroups;
-  const int col0 = (pg % kGroups) * 8;
+  // consumers, while the producer builds the first band: copy the weights
+  // HWIO [k = tap * 48 + ch][o] as they are
+  const int ctid = tid - kProducers;
+  for (int i = ctid; i < static_cast<int>(kWBytes / 16); i += kConsumers) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 ::"r"(smem_u32(smem + 16 * i)), "l"(w + 4 * i)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  bar_sync(kBarWeights, kConsumers);
 
-  for (int item = blockIdx.x; item < n_img * kBands; item += gridDim.x) {
+  // consumers: the band's output is one contiguous run of float4s. Thread
+  // unit f holds quads u * kPixThreads + f % kPixThreads of pixel px = f /
+  // kPixThreads (u < kLaneQuads): neighbouring threads store neighbouring
+  // quads. A pixel whose taps are dark is an exact zero; a lit one sums the
+  // weight rows of its lit (tap, channel) terms, in the order of k = tap *
+  // 48 + ch, each product of a {0,1} predicate value and a weight being
+  // that weight exactly.
+  for (int item = blockIdx.x, j = 0; item < items; item += gridDim.x, ++j) {
+    const int buf = j & 1;
     const int n = item / kBands;
     const int oy0 = (item % kBands) * kBand;
-    const Seg a = load_seg(ep, vis, rev, n, 0);
-    const Seg b = load_seg(ep, vis, rev, n, 1);
-
-    __syncthreads();  // weights landed / previous item done with the tables
-    for (int i = tid; i < kSegs * kPixRows; i += kThreads) {
-      const int r = 4 * oy0 + i % kPixRows;
-      row_run(i < kPixRows ? a : b, r, clo_s[i], chi_s[i]);
-    }
-    for (int c = tid; c < kPixCols; c += kThreads) rows_s[c] = col_rows(a, b, c);
-    __syncthreads();
-
-    // predicate [k = ch*16 + p*4 + q][pred row][pred col]
-    for (int i = tid; i < kPixRows * kPixCols; i += kThreads) {
-      const int lr = i / kPixCols, c = i % kPixCols;
-      const int prow = lr >> 2, p = lr & 3, pcol = c >> 2, q = c & 3;
-      const bool inside = oy0 + prow < kS2d && pcol < kS2d;
-      const bool la = inside && in_run(c, clo_s[lr], chi_s[lr]);
-      const bool lb = inside && in_run(c, clo_s[kPixRows + lr],
-                                       chi_s[kPixRows + lr]);
-      const bool ch0 = la || lb;
-      const bool ch1 = ch0 && rows_s[c] >= 2;
-      const bool ch2 = (la && a.rev) || (lb && b.rev);
-      const int o = (p * 4 + q) * kPredRows * kPredCols + prow * kPredCols + pcol;
-      const int plane = 16 * kPredRows * kPredCols;
-      pred[o] = __float2bfloat16_rn(ch0 ? 1.f : 0.f);
-      pred[o + plane] = __float2bfloat16_rn(ch1 ? 1.f : 0.f);
-      pred[o + 2 * plane] = __float2bfloat16_rn(ch2 ? 1.f : 0.f);
-    }
-    __syncthreads();
-
-    if (tid < kWorkers) {
-      float acc[8][8];
+    const uint64_t* mask = mask_s + buf * kCells;
+    const uint16_t* taps = taps_s + buf * kPixels;
+    const int units = min(kBand, kOut - oy0) * kOut * kPixThreads;
+    float4* dst = reinterpret_cast<float4*>(
+        out + ((size_t)n * kOut + oy0) * kOut * kCout);
+    bar_sync(kBarFull + buf, kThreads);
+    for (int f = ctid; f < units; f += kConsumers) {
+      const int px = f / kPixThreads;
+      const int quad = f - px * kPixThreads;
+      uint32_t t = taps[px];
+      float4 acc[kLaneQuads];
 #pragma unroll
-      for (int p = 0; p < 8; ++p)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-
-      for (int dr = 0; dr < 3; ++dr) {
-        const __nv_bfloat16* prow = pred + (brow + dr) * kPredCols + col0;
-        const float* wrow = w_s + (dr * 3 * kCin) * kCout + cg * 8;
-#pragma unroll 2
-        for (int k = 0; k < kCin; ++k) {
-          float x[10];
-          const __nv_bfloat16* pk = prow + k * kPredRows * kPredCols;
-#pragma unroll
-          for (int i = 0; i < 10; ++i) x[i] = __bfloat162float(pk[i]);
-#pragma unroll
-          for (int dc = 0; dc < 3; ++dc) {
-            float wv[8];
-            load8(wrow + (dc * kCin + k) * kCout, wv);
-#pragma unroll
-            for (int p = 0; p < 8; ++p)
-#pragma unroll
-              for (int q = 0; q < 8; ++q)
-                acc[p][q] = fmaf(x[p + dc], wv[q], acc[p][q]);
-          }
-        }
+      for (int u = 0; u < kLaneQuads; ++u) {
+        acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-
-      const int oy = oy0 + brow;
-      if (oy < kOut) {
-        float* orow = out + (((size_t)n * kOut + oy) * kOut) * kCout + cg * 8;
+      if (t) {
+        const int g = px / kOut, ox = px - g * kOut;
+        const float* wq = w_s + 4 * quad;
+        do {
+          const int tap = __ffs(t) - 1;
+          t &= t - 1;
+          uint64_t m = mask[(g + tap / 3) * kS2d + ox + tap % 3];
+          const float* wt = wq + tap * kCin * kCout;
+          do {
+            const float* row = wt + (__ffsll(m) - 1) * kCout;
+            m &= m - 1;
 #pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          if (col0 + p < kOut) store8(orow + (size_t)(col0 + p) * kCout, acc[p]);
-        }
+            for (int u = 0; u < kLaneQuads; ++u) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  row + 4 * kPixThreads * u);
+              acc[u].x += v.x;
+              acc[u].y += v.y;
+              acc[u].z += v.z;
+              acc[u].w += v.w;
+            }
+          } while (m);
+        } while (t);
       }
+#pragma unroll
+      for (int u = 0; u < kLaneQuads; ++u) {
+        __stcs(dst + px * kQuads + u * kPixThreads + quad, acc[u]);
+      }
+    }
+    if (item + 2 * static_cast<int>(gridDim.x) < items) {
+      bar_arrive(kBarEmpty + buf, kThreads);
     }
   }
 }
@@ -545,14 +633,8 @@ int launch(const void* ep, const void* vis, const void* rev, const void* w,
       conv1_raster_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, conv1_raster_f32, kThreads, kSmem)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int items = n * kBands;
-  const int grid = items < per_sm * sms ? items : per_sm * sms;
+  const int grid = items < sms ? items : sms;
   conv1_raster_f32<<<grid, kThreads, kSmem, s>>>(
       static_cast<const int*>(ep), static_cast<const unsigned char*>(vis),
       static_cast<const unsigned char*>(rev), static_cast<const float*>(w),

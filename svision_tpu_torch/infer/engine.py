@@ -55,7 +55,7 @@ from svision_tpu_torch.ops.raster_kernel import render_images
 from svision_tpu_torch.ops.raster_kernel import render_raster as render_raster_kernel
 
 __all__ = ["CHUNK", "RASTERS", "TAIL", "InferenceEngine", "exact_f32",
-           "resolve_device"]
+           "fused_logits", "resolve_device"]
 
 # Defaults of the dispatch plan on the card; PERF.md says how they were
 # chosen.
@@ -80,6 +80,19 @@ def exact_f32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def fused_logits(model: AlexNet, w_s2d: torch.Tensor, ep: torch.Tensor,
+                 vis: torch.Tensor, rev: torch.Tensor) -> torch.Tensor:
+    """Logits f32 [N,5] of the folded network (AlexNet with s2d=True)
+    straight from the endpoints: the fused raster+conv1 kernel with the
+    folded conv1 weights w_s2d [3,3,48,96], then forward_conv1, which adds
+    the folded bias. The fast path's step in bf16. In f32, under
+    exact_f32(), it is the exact step's fused route, which chip_smoke.py
+    and scripts/torch_roofline.py --exact measure beside the engine's
+    exact step; the engine does not take it (PERF.md, Findings). CPU
+    tensors take the kernels' plain versions."""
+    return model.forward_conv1(conv1_fused_raster(ep, vis, rev, w_s2d))
 
 
 class InferenceEngine:
@@ -233,8 +246,7 @@ class InferenceEngine:
         if not self.fast:
             logits = model(render_images(ep, vis, rev, dtype=torch.float32))
         elif self.raster == "s2d":
-            logits = model.forward_conv1(conv1_fused_raster(ep, vis, rev,
-                                                            w_s2d))
+            logits = fused_logits(model, w_s2d, ep, vis, rev)
         else:
             if self.raster == "pallas":
                 raster = render_raster_kernel(ep, vis, rev,

@@ -6,12 +6,15 @@ The kernel is csrc/conv1_raster.cu; its plain version is
 conv1_fused_raster_plain below (render_raster_s2d, then a 3x3 VALID conv
 with the folded weights), which a CPU tensor goes to. A CUDA tensor
 launches the kernel or raises. It is the first layer of the engine's bf16
-path: the predicate never reaches device memory.
+path: the predicate never reaches device memory. The exact engine does
+not call it (infer/engine.py:fused_logits).
 
-bf16 runs as a wgmma (tensor-core) implicit GEMM; f32, which no main path
-reaches, on CUDA-core FMAs. Bound on an H100 at B=128: bytes, the 74.3 MB
-bf16 output, 22 us at 3.35 TB/s; the dense GEMM, 32.1 GFLOP, would take
-32 us on bf16 tensor cores.
+bf16 runs as a wgmma (tensor-core) implicit GEMM. f32 adds, on CUDA cores,
+the weights of the lit predicate terms only, each product of a {0,1} value
+and a weight being that weight exactly. Bound on an H100 at B=128: bytes,
+the output, 74.3 MB in bf16 (22 us at 3.35 TB/s) and 148.7 MB in f32
+(44 us); the dense GEMM, 32.1 GFLOP, would take 32 us on bf16 tensor cores
+and 479 us as f32 FMAs.
 """
 
 from __future__ import annotations

@@ -40,6 +40,23 @@ def random_specs(n, seed=0):
     return specs
 
 
+def diagonal_specs(n, seed=0):
+    """Densely lit candidate specs [n,12]: both segments long diagonals
+    across the canvas, the second on the reverse strand, each image offset
+    by a few pixels. Every column then holds two lit rows, so channels 0
+    and 1 are lit along both lines and channel 2 along the second: 3-4x
+    the lit share of random_specs' s2d raster."""
+    rng = np.random.RandomState(seed)
+    specs = np.zeros((n, 12), dtype=np.int64)
+    o1, o2 = rng.randint(0, 31, n), rng.randint(0, 31, n)
+    # segment 1 forward, rows o1..226; segment 2 reverse, rows 226-o2..0
+    specs[:, 0], specs[:, 3], specs[:, 4] = o1, 227 - o1, 1
+    specs[:, 1] = specs[:, 0] + specs[:, 3]
+    specs[:, 5], specs[:, 8], specs[:, 9] = 226 - o2, 227 - o2, 0
+    specs[:, 10] = specs[:, 11] = 227
+    return specs
+
+
 def nvidia_smi():
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(

@@ -235,16 +235,21 @@ def _conv1_inputs(dev, case):
     if case == "sentinel":          # the engine's padding spec alone
         return [torch.from_numpy(a).to(dev) for a in
                 rasterize.specs_to_endpoints(np.repeat(SPECS[-1:], 200, 0))]
+    if case == "dense":             # long diagonals: densely lit
+        from svision_tpu_torch.timing import diagonal_specs
+        return [torch.from_numpy(a).to(dev) for a in
+                rasterize.specs_to_endpoints(diagonal_specs(128, seed=2))]
     return _batch(dev, case)
 
 
 @pytest.mark.parametrize("case", ["degenerate", "all-dark", "sentinel",
-                                  1, 7, 128, 129, 1000])
+                                  "dense", 1, 7, 128, 129, 1000, 4096])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
 def test_conv1_kernel(cuda, dtype, tol, case):
     """Batch sizes that split unevenly over the SMs, with a partial last
-    wave, and batches with nothing or almost nothing lit; one launch per
+    wave, up to 4,096 (K3 f32 stripes its items over the SMs), batches with
+    nothing or almost nothing lit, and a densely lit one; one launch per
     call."""
     from svision_tpu_torch.infer.engine import exact_f32
     seg = _conv1_inputs(cuda, case)
@@ -257,6 +262,8 @@ def test_conv1_kernel(cuda, dtype, tol, case):
         want = fused_conv1.conv1_fused_raster_plain(*seg, w).float()
     assert got.shape == want.shape
     assert (got - want).abs().max() <= tol * want.abs().max()
+    if case == "all-dark":
+        assert got.count_nonzero().item() == 0
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -169,6 +169,61 @@ def test_roofline_full_prefix_is_the_engine_step(capsys):
     assert len(capsys.readouterr().out.strip().splitlines()) == 8
 
 
+def test_roofline_exact_prefixes_are_the_exact_steps(capsys):
+    """--exact: the k1_cudnn route's full prefix is the exact engine's
+    step and the k3 route's is fused_logits on the folded f32 weights, each
+    prefix of the right shape; main times both routes' sections."""
+    from svision_tpu_torch.infer.engine import (InferenceEngine, exact_f32,
+                                                fused_logits)
+    from svision_tpu_torch.models.alexnet import (AlexNet, fold_conv1_params,
+                                                  init_params)
+    from svision_tpu_torch.ops import rasterize
+    roof = load_script("torch_roofline")
+    eng = InferenceEngine(init_params(0), batch_size=4, bf16=False,
+                          device="cpu")
+    model, _ = eng._replicas[0]
+    folded = AlexNet.from_params(fold_conv1_params(init_params(0)), s2d=True,
+                                 device="cpu")
+    w = folded.conv1_weight_hwio()
+    seg = tuple(torch.from_numpy(a) for a in rasterize.specs_to_endpoints(
+        bench_torch.random_specs(4, 2)))
+    with torch.inference_mode(), exact_f32():
+        got = roof.build_exact_prefix(model, 6)(*seg)
+        want = eng._step(model, None, *seg)
+        logits = fused_logits(folded, w, *seg)
+        fused = roof.build_exact_prefix(folded, 6, w)(*seg)
+        shapes = {n: tuple(roof.build_exact_prefix(model, n)(*seg).shape)
+                  for n in (None, 0, 1, 5)}
+        k3 = tuple(roof.build_exact_prefix(folded, 0, w)(*seg).shape)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(fused[0], logits.argmax(dim=1))
+    assert torch.equal(fused[1], torch.softmax(logits, dim=1).amax(dim=1))
+    assert shapes == {None: (4, 227, 227, 3), 0: (4, 55, 55, 96),
+                      1: (4, 27, 27, 96), 5: (4, 256, 6, 6)}
+    assert k3 == (4, 55, 55, 96)
+    assert roof.exact_layers(None) == [] and roof.exact_layers(0) == ["conv1"]
+    assert roof.peaks("NVIDIA H100 80GB HBM3, 700.00 W", f32=True) == (
+        67e12, 3.35e12)
+    out = roof.main(["--device", "cpu", "--batch", "2", "--reps", "1",
+                     "--exact"])
+    assert [(s["route"], s["section"]) for s in out["sections"]] == [
+        (r, lab) for r, stages in roof.EXACT_STAGES.items()
+        for lab, _ in stages]
+    assert all(s["cum_ms"] > 0 for s in out["sections"]) and out["exact"]
+    assert len(capsys.readouterr().out.strip().splitlines()) == 16
+    # the k3 route's conv1 counts K3's lit terms; the k1_cudnn route's the
+    # dense conv
+    two = tuple(torch.from_numpy(a) for a in rasterize.specs_to_endpoints(
+        bench_torch.random_specs(2, 0)))
+    first = {}
+    for s in out["sections"]:
+        if s["flops"]:
+            first.setdefault(s["route"], s)
+    assert first["k3"]["flops"] == 2 * roof.conv1_lit_macs(*two) > 0
+    assert first["k1_cudnn"]["flops"] == 2 * 2 * roof.layer_macs()["conv1"]
+
+
 @pytest.fixture(scope="module")
 def e2e_dirs(tmp_path_factory):
     """The tiny fixture built by each script's build_inputs."""
