@@ -17,6 +17,8 @@ Phases, each of which fails the run with a non-zero exit on any check:
      batch, bf16 at batches of 1, 129 and 8,192, f32 at 1, 129 and 4,096
      and on a densely lit batch, with the route K3 f32 stands for in the
      exact step (K1's images, then conv1 through cuDNN) timed beside it;
+     K2's backward kernel at the training batch of 64, both tails, both
+     dtypes, on random and on tie-heavy inputs;
   3. run the InferenceEngine in both numeric modes: its CUDA graphs bit for
      bit against its eager step at 1, 128, 129, 17 x 128 + 5, chunk + 20
      batches and 8,192 specs, images/s graphed and eager, and 8,192 specs
@@ -49,8 +51,10 @@ Phases, each of which fails the run with a non-zero exit on any check:
      step from the same state (fit's and fit_device's), and replays that
      draw new dropout masks; eight bf16 steps with a falling loss; training
      images/s of fit and fit_device (graphed), the image path with
-     fragmented segments too; the bf16 s2d fit_device step profiled,
-     graphed and eager; the DP x TP step in f64 against one device (over
+     fragmented segments too, every trainer's step holding 2 K2 launches
+     and 2 of its backward a step (a 2 x 2 DP x TP grid: on each cell);
+     the bf16 s2d fit_device step profiled, graphed and eager (K2's share
+     by kernel name); the DP x TP step in f64 against one device (over
      the visible GPUs, or a 2 x 2 grid of one GPU's replicas); the DP x TP
      step's CUDA graphs against eager twins, with new dropout masks, the
      host's calls a step and fit(mesh=)'s launches, on one GPU's replicas
@@ -238,25 +242,28 @@ def hgmma_count(lib: str) -> int:
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel of the engine's path for its plain PyTorch version
-    (they then run on the card as torch ops). A CUDA graph captured before
-    the swap still holds the kernels: build and capture an engine inside."""
+    (they then run on the card as torch ops), and the trainers' K2 and its
+    backward for autograd through K2's plain version. A CUDA graph
+    captured before the swap still holds the kernels: build and capture an
+    engine or a step inside."""
     from svision_tpu_torch.infer import engine
-    from svision_tpu_torch.models import alexnet, int8
+    from svision_tpu_torch.models import alexnet, int8, train
     from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, rasterize
     saved = (engine.conv1_fused_raster, engine.render_images,
              engine.render_raster_kernel, alexnet.bias_relu_pool_lrn,
-             int8.bias_relu_pool_lrn)
+             int8.bias_relu_pool_lrn, train.bias_relu_pool_lrn_autograd)
     engine.conv1_fused_raster = fused_conv1.conv1_fused_raster_plain
     engine.render_images = rasterize.render_images
     engine.render_raster_kernel = rasterize.render_raster
     alexnet.bias_relu_pool_lrn = fused_pool_lrn.bias_relu_pool_lrn_plain
     int8.bias_relu_pool_lrn = fused_pool_lrn.bias_relu_pool_lrn_plain
+    train.bias_relu_pool_lrn_autograd = fused_pool_lrn.bias_relu_pool_lrn_plain
     try:
         yield
     finally:
         (engine.conv1_fused_raster, engine.render_images,
          engine.render_raster_kernel, alexnet.bias_relu_pool_lrn,
-         int8.bias_relu_pool_lrn) = saved
+         int8.bias_relu_pool_lrn, train.bias_relu_pool_lrn_autograd) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +369,7 @@ def check_kernels(params, dense_k3) -> dict:
     out["render_raster"] = variants
 
     out["bias_relu_pool_lrn"] = check_pool_lrn()
+    out["bias_relu_pool_lrn_backward"] = check_pool_lrn_backward()
 
     # K3: f32 within 1e-4 of max|out|, bf16 within 1e-2 of max|out|
     w32 = torch.from_numpy(fold_conv1_params(params)["conv1/weights"]).to(dev)
@@ -467,6 +475,82 @@ def check_pool_lrn(cold_buffers: int = 4) -> list:
                     [lambda s=s: dst.copy_(s) for s in src])))
             log(f"K2 bias_relu_pool_lrn {tail} {kind}: ok, {variants[-1]}")
             del xs, src, dst
+    return variants
+
+
+def tie_heavy(x):
+    """x with the ties of a raster's blank regions: the top half one
+    constant, and in the rest the first third of the columns a copy of the
+    second (repeated patches)."""
+    h, w = x.shape[1:3]
+    x = x.clone()
+    x[:, : h // 2] = 0.5
+    x[:, h // 2:, : w // 3] = x[:, h // 2:, w // 3: 2 * (w // 3)]
+    return x
+
+
+def check_pool_lrn_backward() -> list:
+    """K2's backward kernel at both tails and in both dtypes at the
+    training batch TRAIN_B, on random inputs and on tie_heavy ones: dx
+    against the plain version, f32 within 1e-5 of the largest entry with
+    the same positions receiving a gradient, bf16 within 1e-2; the bias
+    gradient within 1e-5 (f32) / 1e-2 (bf16) of its largest entry. Times
+    (random inputs): the wrapper (the kernel, then torch's sum of its
+    per-row bias partials), that sum alone, and the plain version, each
+    the mean of back-to-back launches, the queue held. The bound counts x,
+    the bias and dy read once and dx and the bias gradient written once.
+    No single PyTorch call computes this function (library_ms null)."""
+    import torch
+    from svision_tpu_torch.ops import fused_pool_lrn
+    dev = torch.device("cuda")
+    k, plain = (fused_pool_lrn.bias_relu_pool_lrn_backward,
+                fused_pool_lrn.bias_relu_pool_lrn_backward_plain)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    variants = []
+    for h, c, tail in ((55, 96, "conv1"), (27, 256, "conv2")):
+        ho = (h - 3) // 2 + 1
+        x32 = torch.randn((TRAIN_B, h, h, c), generator=gen, device=dev) * 2
+        b32 = torch.randn((c,), generator=gen, device=dev)
+        dy32 = torch.randn((TRAIN_B, ho, ho, c), generator=gen, device=dev)
+        for case, xc in (("random", x32), ("ties", tie_heavy(x32))):
+            for dt, kind, tol in ((torch.bfloat16, "bf16", 1e-2),
+                                  (torch.float32, "f32", 1e-5)):
+                x, b, dy = xc.to(dt), b32.to(dt), dy32.to(dt)
+                dx, db = k(x, b, dy)
+                want_dx, want_db = plain(x, b, dy)
+                torch.cuda.synchronize()
+                err = (dx.float() - want_dx.float()).abs().max().item()
+                scale = want_dx.float().abs().max().item()
+                db_err = (db.float() - want_db.float()).abs().max().item()
+                db_scale = want_db.float().abs().max().item()
+                same = bool(torch.equal(dx != 0, want_dx != 0))
+                assert err <= tol * scale, \
+                    f"K2 backward {tail} {kind} {case}: dx {err} > {tol} * {scale}"
+                assert db_err <= tol * db_scale, \
+                    f"K2 backward {tail} {kind} {case}: db {db_err}"
+                assert same or kind == "bf16", \
+                    f"K2 backward {tail} {kind} {case}: other positions"
+                v = dict(tail=tail, dtype=kind, case=case,
+                         shape=list(x.shape), max_abs_err=err,
+                         max_abs_dx=scale, db_max_abs_err=db_err,
+                         same_positions=same,
+                         bit_equal=bool(torch.equal(dx, want_dx)))
+                if case == "random":
+                    moved = nbytes(x, b, dy, dx, db)
+                    # per output: the window's 9 adds and maxima, the LRN
+                    # and its derivative; per input: 9 taps' routes, the add
+                    flops = 60.0 * dy.numel() + 20.0 * x.numel()
+                    bnd, by = bound_ms(moved, flops, "f32")
+                    part = torch.zeros((TRAIN_B * ho, c), device=dev)
+                    ms = time_ms(lambda: k(x, b, dy))
+                    v.update(ms=ms, plain_ms=time_ms(lambda: plain(x, b, dy),
+                                                     reps=PLAIN_REPS),
+                             db_sum_ms=time_ms(lambda: part.sum(0)),
+                             bound_ms=bnd, bound_by=by, bound_fraction=bnd / ms,
+                             bytes_moved=moved, library_ms=None)
+                variants.append(v)
+                log(f"K2 backward {tail} {kind} {case} B={TRAIN_B} "
+                    f"({REPORT['device']['nvidia_smi']}): ok, {v}")
     return variants
 
 
@@ -882,11 +966,11 @@ def _records(path: str):
 # engine
 PER_BATCH = {
     "default": {"render_raster": 0, "bias_relu_pool_lrn": 2,
-                "conv1_fused_raster": 1},
+                "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
     "exact": {"render_raster": 1, "bias_relu_pool_lrn": 2,
-              "conv1_fused_raster": 0},
+              "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0},
     "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
-            "conv1_fused_raster": 0}}
+            "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
 # phase 8's modes: engine arguments, and K1's dtype where it runs
 MODES = {
     "bf16_compare": (dict(raster="compare"), None),
@@ -898,7 +982,9 @@ MODES = {
     "unfolded_bf16": (dict(fast=False), "f32"),
 }
 PER_BATCH.update({mode: {"render_raster": int(k1 is not None),
-                         "bias_relu_pool_lrn": 2, "conv1_fused_raster": 0}
+                         "bias_relu_pool_lrn": 2,
+                         "bias_relu_pool_lrn_backward": 0,
+                         "conv1_fused_raster": 0}
                   for mode, (_, k1) in MODES.items()})
 
 
@@ -1459,20 +1545,24 @@ TRAIN_B = 64                 # the training batch of the rates and profile
 MESH_B = 32                  # the DP x TP graph check's global batch
 RATE_STEPS = 12              # steps per epoch of each rate run
 
-# launches per step of each training run, and per batch of evaluate
+
+def _per_step(k1: int, tails: int) -> dict:
+    """Launches a step: K1 k1 times, K2 and its backward once per
+    bias/ReLU/pool/LRN tail (two per conv stack)."""
+    return {"render_raster": k1, "bias_relu_pool_lrn": tails,
+            "bias_relu_pool_lrn_backward": tails, "conv1_fused_raster": 0}
+
+
+# launches per step of each training run, and per batch of evaluate; the
+# DP x TP step on its 2 x 2 grid runs the conv stack on every cell
 PER_STEP = {
-    "fit": {"render_raster": 1, "bias_relu_pool_lrn": 0,
-            "conv1_fused_raster": 0},
-    "fit_device_image": {"render_raster": 1, "bias_relu_pool_lrn": 0,
-                         "conv1_fused_raster": 0},
-    "fit_device_image_noise": {"render_raster": 1, "bias_relu_pool_lrn": 0,
-                               "conv1_fused_raster": 0},
-    "fit_device_s2d": {"render_raster": 0, "bias_relu_pool_lrn": 0,
-                       "conv1_fused_raster": 0},
-    "fit_mesh": {"render_raster": 1, "bias_relu_pool_lrn": 0,
-                 "conv1_fused_raster": 0},
+    "fit": _per_step(1, 2),
+    "fit_device_image": _per_step(1, 2),
+    "fit_device_image_noise": _per_step(1, 2),
+    "fit_device_s2d": _per_step(0, 2),
+    "fit_mesh": _per_step(1, 2 * 4),
     "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
-                 "conv1_fused_raster": 0}}
+                 "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
 
 
 def labeled(n: int, seed: int):
@@ -1572,10 +1662,12 @@ def check_graph_steps(params) -> dict:
     eager twins differ by (max-pool's backward on the card adds with
     atomics, so eager steps are not bit-reproducible). Then replays at
     keep_prob 0.5 on one batch with a zero learning rate draw new dropout
-    masks: every loss differs."""
+    masks: every loss differs. The eager twins' steps also count the
+    copies BiasReluPoolLRN makes of a non-contiguous NHWC view."""
     import torch
     from svision_tpu_torch import graphs
     from svision_tpu_torch.models import train
+    from svision_tpu_torch.ops.fused_pool_lrn import BiasReluPoolLRN
     from svision_tpu_torch.models.alexnet import AlexNet, params_to_numpy
     from svision_tpu_torch.ops import rasterize
     dev = torch.device(GPU)
@@ -1614,7 +1706,9 @@ def check_graph_steps(params) -> dict:
                  for _ in range(2)]
         last = steps - 1
         lg = float(step(last))
+        BiasReluPoolLRN.copies = 0
         le = [float(tstep(last)) for _, tstep in twins]
+        copies = BiasReluPoolLRN.copies / len(twins)
         pg = params_to_numpy(dict(model.named_parameters()))
         pe = [params_to_numpy(dict(t.named_parameters())) for t, _ in twins]
 
@@ -1626,13 +1720,15 @@ def check_graph_steps(params) -> dict:
                          loss_rel_err=abs(lg - le[0]) / abs(le[0]),
                          bit_equal=lg == le[0] and all(
                              np.array_equal(pg[k], pe[0][k]) for k in pg),
-                         param_rel_err=err, eager_twins_param_rel_err=twin_err)
+                         param_rel_err=err, eager_twins_param_rel_err=twin_err,
+                         pool_lrn_copies_per_eager_step=copies)
         assert out[name]["loss_rel_err"] <= 1e-6, f"{name}: {lg} vs {le}"
         assert max(err.values()) <= 1e-6, f"{name}: parameters {err}"
         log(f"graphed step {name}: loss {lg} (eager {le}), bit-equal "
             f"{out[name]['bit_equal']}, worst parameter rel err "
             f"{max(err.values()):.3g} (eager vs eager "
-            f"{max(twin_err.values()):.3g})")
+            f"{max(twin_err.values()):.3g}); BiasReluPoolLRN copies an "
+            f"eager step {copies}")
         del model, opt, step, twins
 
     model = AlexNet.trainable(params, device=dev)
@@ -1714,9 +1810,12 @@ def profile_train_step(params) -> dict:
     operations executed, the span from the first to the last) and timed
     back to back by host clock (host_clock_ms) and, the graph, by CUDA
     events with the queue held (time_ms: the device's time a step, gaps
-    between its operations included). Then CUDA-event times, the queue held, of two of its
-    parts: the plain s2d raster, and the differentiable bias/ReLU/pool/LRN
-    ops (forward and backward) at the conv1 and conv2 tails; each part's
+    between its operations included). The graphed profile's K2 and K2
+    backward kernels (by name) give the pool/LRN share of the step. Then
+    CUDA-event times, the queue held, of two of its parts: the plain s2d
+    raster, and bias/ReLU/pool/LRN forward and backward at the conv1 and
+    conv2 tails, through BiasReluPoolLRN (the trainers' route) and through
+    the composition of torch ops the trainers ran before it; each part's
     share is of the graphed step's device-busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1724,6 +1823,7 @@ def profile_train_step(params) -> dict:
     from svision_tpu_torch.models import train
     from svision_tpu_torch.models.alexnet import AlexNet
     from svision_tpu_torch.ops import rasterize
+    from svision_tpu_torch.ops.fused_pool_lrn import lrn
     dev = torch.device(GPU)
     bf = torch.bfloat16
     specs, labels = labeled(TRAIN_B, seed=11)
@@ -1753,6 +1853,8 @@ def profile_train_step(params) -> dict:
         per_kernel, busy_ms = device_time(prof, prof_ms,
                                           f"profile train step {how}")
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:24]
+        pool_lrn = {k: v for k, v in per_kernel.items()
+                    if "pool_lrn_ring" in k or "pool_lrn_backward" in k}
         ops = [e for e in prof.events() if on_device(e)]
         out[how] = dict(
             wall_ms=prof_ms, device_ms=busy_ms,
@@ -1770,7 +1872,9 @@ def profile_train_step(params) -> dict:
             # the eager step's 400-odd launches take the host longer than
             # its device time, so the queue cannot be held for it
             step_event_ms=None if eager else time_ms(one, reps=10),
-            top_kernels_ms={k[:120]: v for k, v in top})
+            top_kernels_ms={k[:120]: v for k, v in top},
+            pool_lrn_kernels_ms={k[:120]: v for k, v in pool_lrn.items()},
+            pool_lrn_kernels_share=sum(pool_lrn.values()) / busy_ms)
         log(f"profile train step bf16 s2d B={TRAIN_B} {how} "
             f"({REPORT['device']['nvidia_smi']}): {prof_ms:.3f} ms wall "
             f"profiled, {busy_ms:.3f} ms on the device, idle share "
@@ -1779,31 +1883,45 @@ def profile_train_step(params) -> dict:
             f"{out[how]['host_launch_calls']} launch calls, first to last "
             f"{out[how]['device_span_ms']:.3f} ms; unprofiled step "
             f"{out[how]['step_wall_ms']:.3f} ms wall, "
-            f"{out[how]['step_event_ms']} ms between events, the queue held")
+            f"{out[how]['step_event_ms']} ms between events, the queue held; "
+            f"K2 and its backward {sum(pool_lrn.values()):.3f} ms "
+            f"({out[how]['pool_lrn_kernels_share']:.1%} of the busy time): "
+            f"{out[how]['pool_lrn_kernels_ms']}")
+        assert all(any(n in k for k in pool_lrn)
+                   for n in ("pool_lrn_ring", "pool_lrn_backward")), \
+            f"profile train step {how}: K2 kernels {pool_lrn}"
         del model, step
     busy_ms = out["graphed"]["device_ms"]
     raster_ms = time_ms(lambda: rasterize.render_raster_s2d(*seg, dtype=bf),
                         reps=PLAIN_REPS)
-    tails = {}
+    tails, composed = {}, {}
     tgen = torch.Generator(device=dev).manual_seed(3)
     for tail, c, hw in (("conv1", 96, 55), ("conv2", 256, 27)):
-        h = torch.randn((TRAIN_B, c, hw, hw), generator=tgen, device=dev).to(
-            bf).contiguous(memory_format=torch.channels_last).requires_grad_()
+        h = torch.randn((TRAIN_B, hw, hw, c), generator=tgen, device=dev).to(
+            bf).requires_grad_()
         b = torch.zeros(c, device=dev, dtype=bf, requires_grad=True)
         ho = (hw - 3) // 2 + 1
-        g = torch.randn((TRAIN_B, c, ho, ho), generator=tgen,
+        g = torch.randn((TRAIN_B, ho, ho, c), generator=tgen,
                         device=dev).to(bf)
 
         def fwd_bwd(h=h, b=b, g=g):
             train.bias_relu_pool_lrn_autograd(h, b).backward(g)
+
+        def composition(h=h, b=b, g=g):
+            p = torch.nn.functional.max_pool2d(
+                torch.relu(h.permute(0, 3, 1, 2) + b[:, None, None]), 3, 2)
+            lrn(p.permute(0, 2, 3, 1)).backward(g)
         tails[tail] = time_ms(fwd_bwd, reps=5)
+        composed[tail] = time_ms(composition, reps=5)
     out.update(s2d_raster_ms=raster_ms, s2d_raster_share=raster_ms / busy_ms,
                bias_relu_pool_lrn_fwd_bwd_ms=tails,
-               bias_relu_pool_lrn_share=sum(tails.values()) / busy_ms)
+               bias_relu_pool_lrn_share=sum(tails.values()) / busy_ms,
+               composition_fwd_bwd_ms=composed)
     log(f"held: plain s2d raster {raster_ms:.3f} ms "
         f"({out['s2d_raster_share']:.1%} of the graphed step's device busy),"
-        f" bias/ReLU/pool/LRN fwd+bwd {tails} "
-        f"({out['bias_relu_pool_lrn_share']:.1%})")
+        f" bias/ReLU/pool/LRN fwd+bwd through BiasReluPoolLRN {tails} "
+        f"({out['bias_relu_pool_lrn_share']:.1%}), through the torch ops "
+        f"the trainers ran before it {composed}")
     return out
 
 
@@ -1869,10 +1987,11 @@ def check_mesh_graph_steps(params) -> dict:
     on one batch with lr 0 draw new masks (every loss differs); fit(mesh=)
     over WARMUP_STEPS + 2 steps holds its launches to PER_STEP["fit_mesh"];
     and, on one GPU, the host's CUDA calls and wall ms per step, eager and
-    replayed."""
+    replayed. The eager twins' steps count BiasReluPoolLRN's copies."""
     import torch
     from svision_tpu_torch import graphs
     from svision_tpu_torch.models import train
+    from svision_tpu_torch.ops.fused_pool_lrn import BiasReluPoolLRN
     from svision_tpu_torch.parallel import mesh as M
     steps = graphs.WARMUP_STEPS + 1
     b = MESH_B
@@ -1907,7 +2026,9 @@ def check_mesh_graph_steps(params) -> dict:
         pieces = step.pieces
         assert len(pieces.graphs) == 16 and pieces.replaying, \
             f"mesh {name}: {len(pieces.graphs)} graphs"
+        BiasReluPoolLRN.copies = 0
         le = [float(tstep(*batch(last))) for _, tstep in twins]
+        copies = BiasReluPoolLRN.copies / len(twins)
         pg = M.gather_params(cells)
         pe = [M.gather_params(t) for t, _ in twins]
 
@@ -1920,13 +2041,15 @@ def check_mesh_graph_steps(params) -> dict:
                  bit_equal=lg == le[0] and all(
                      np.array_equal(pg[k], pe[0][k]) for k in pg),
                  param_rel_err=err, eager_twins_param_rel_err=twin_err,
-                 graphs=len(pieces.graphs))
+                 graphs=len(pieces.graphs),
+                 pool_lrn_copies_per_eager_step=copies)
         assert r["loss_rel_err"] <= 1e-6, f"mesh {name}: {lg} vs {le}"
         assert max(err.values()) <= 1e-6, f"mesh {name}: parameters {err}"
         log(f"graphed DP x TP step on {name}: loss {lg} (eager {le}), "
             f"bit-equal {r['bit_equal']}, worst parameter rel err "
             f"{max(err.values()):.3g} (eager vs eager "
-            f"{max(twin_err.values()):.3g})")
+            f"{max(twin_err.values()):.3g}); BiasReluPoolLRN copies an "
+            f"eager step {copies}")
         if name == "cuda0_x4":
             twin_step = twins[0][1]
             r["host_calls_eager"] = host_calls(lambda: twin_step(*batch(0)))
@@ -1975,7 +2098,10 @@ def check_dp_tp(params) -> dict:
     of its largest entry on four H100s. On every visible GPU where there
     are two or more, else on a 2 x 2 grid of one GPU's replicas. Loss
     (from fc8's f32 logits either way) within 1e-6 relative, the (f32)
-    gradients within 1e-5 of their largest entry."""
+    gradients within 1e-5 of their largest entry. The kernels take f32 and
+    bf16 only, and on the card the trainers raise on f64: both steps run
+    inside plain_kernels(), K2's function through autograd of its plain
+    version."""
     import torch
     from svision_tpu_torch.models import train
     from svision_tpu_torch.models.alexnet import AlexNet, params_to_numpy
@@ -1986,18 +2112,20 @@ def check_dp_tp(params) -> dict:
     dev0 = grid[0][0]
     cells = M.shard_params_tp(params, grid)
     f64 = torch.float64
-    _, mstep = train.make_mesh_train_step(cells, learning_rate=5e-3,
-                                          clip_norm=1.0, keep_prob=1.0,
-                                          compute_dtype=f64)
     specs, labels = labeled(32, seed=12)
     images = train.specs_to_images(specs, device=dev0)
     y = torch.from_numpy(labels).to(dev0)
     gens = {d: torch.Generator(device=d) for row in grid for d in row}
-    mloss = float(mstep(images, y, gens))
     model = AlexNet.trainable(params, device=dev0)
-    _, step = train.make_train_step(model, learning_rate=5e-3, clip_norm=1.0,
-                                    keep_prob=1.0, compute_dtype=f64)
-    loss = float(step(images, y, torch.Generator(device=dev0)))
+    with plain_kernels():
+        _, mstep = train.make_mesh_train_step(cells, learning_rate=5e-3,
+                                              clip_norm=1.0, keep_prob=1.0,
+                                              compute_dtype=f64)
+        mloss = float(mstep(images, y, gens))
+        _, step = train.make_train_step(model, learning_rate=5e-3,
+                                        clip_norm=1.0, keep_prob=1.0,
+                                        compute_dtype=f64)
+        loss = float(step(images, y, torch.Generator(device=dev0)))
     want = params_to_numpy({k: v.grad for k, v in model.named_parameters()})
     got = M.gather_params([[{k: t.grad for k, t in c.items()}
                             for c in cells[0]]])
@@ -2213,7 +2341,9 @@ def check_tools(work: str) -> dict:
     with counted() as r:
         roof = torch_roofline.main(["--batch", str(B), "--exact"])
     assert all(x["cum_ms"] > 0 for x in roof["sections"]), roof["sections"]
-    assert all(r["launches"][k] > 0 for k in r["launches"]), r["launches"]
+    # every inference kernel; no training
+    assert all((r["launches"][k] > 0) == (k != "bias_relu_pool_lrn_backward")
+               for k in r["launches"]), r["launches"]
     out["roofline_exact"] = dict(roof, launches=r["launches"])
     seconds["roofline"] = time.perf_counter() - t0
 
@@ -2264,7 +2394,9 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     phases 3-9 (runs: name -> {"launches", "batches"}, and "k1_dtype" where
     K1 renders bf16), its error against its plain version, and its times
     and bound at the main path's dtype. K1 has a row per dtype: f32 on the
-    exact path, bf16 on the 'pallas' engines of phase 8."""
+    exact path, bf16 on the 'pallas' engines of phase 8. K2's backward
+    has no TPU kernel of its own: its row names K2's, whose function it
+    differentiates (the JAX trainer leaves that gradient to XLA)."""
     info = (
         ("render_raster", "render_raster", "svision_tpu_torch/csrc/raster.cu",
          "svision_tpu/ops/pallas_raster.py:108", "f32", None),
@@ -2273,6 +2405,9 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
          "svision_tpu/ops/pallas_raster.py:108", "bf16", None),
         ("bias_relu_pool_lrn", "bias_relu_pool_lrn",
          "svision_tpu_torch/csrc/pool_lrn.cu",
+         "svision_tpu/ops/fused_pool_lrn.py:76", "bf16", "conv1"),
+        ("bias_relu_pool_lrn_backward", "bias_relu_pool_lrn_backward",
+         "svision_tpu_torch/csrc/pool_lrn_backward.cu",
          "svision_tpu/ops/fused_pool_lrn.py:76", "bf16", "conv1"),
         ("conv1_fused_raster", "conv1_fused_raster",
          "svision_tpu_torch/csrc/conv1_raster.cu",
@@ -2297,10 +2432,16 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, at=dict(dtype=dtype, shape=main["shape"]),
-            **{k: main[k] for k in ("warm_ms", "cold_ms") if k in main},
+            **{k: main[k] for k in ("warm_ms", "cold_ms", "db_sum_ms")
+               if k in main},
             variants=kernels[name], ptxas=build["ptxas"][src]))
         if name == "conv1_fused_raster":
             rows[-1]["hgmma_in_sass"] = build["k3_hgmma"]
+        if name == "bias_relu_pool_lrn_backward":
+            rows[-1]["note"] = (
+                "the gradient of K2's function; the JAX package has no "
+                "backward kernel: its trainer differentiates "
+                "svision_tpu/models/train.py:44-47 through XLA")
     return {"kernels": rows}
 
 

@@ -2,7 +2,7 @@
 change checkout, in alternating pairs, on one CUDA GPU.
 
     python3 scripts/torch_turns.py PARENT CHANGE [--pairs 10] [--out FILE]
-        [--engines-only]
+        [--engines-only | --training-only]
 
 PARENT and CHANGE are checkouts holding svision_tpu_torch/. Each pair runs
 one measuring process per checkout, the parent first in even pairs and the
@@ -15,13 +15,14 @@ other checkout's package:
   best of 3 calls after a warm-up (chip_smoke.best_rate);
 - K2's times through the checkout's own wrapper (chip_smoke.check_pool_lrn):
   back to back, and the cold-L2 median of single launches;
-- fit_device's images/s in bf16 on the s2d path at batch 64
+- fit_device's images/s in bf16 and in f32 on the s2d path at batch 64
   (chip_smoke.TRAIN_B), over the second of two epochs of
   chip_smoke.RATE_STEPS steps, as chip_smoke phase 7 reads it; then, in a
   second run, the device's idle share over that epoch under torch.profiler
   (chip_smoke.device_time), started and stopped by the epoch-end log
   calls, which follow a sync.
---engines-only measures the engines alone.
+--engines-only measures the engines alone, --training-only fit_device
+alone.
 The summary gives, per metric, each side's median, the parent's spread
 (the distance between its quartiles), and the pairs the change won. It
 calls a gain only where the change won at least 9 pairs in 10 and the
@@ -46,8 +47,9 @@ ENGINES = {"bf16": dict(bf16=True), "pallas bf16": dict(raster="pallas"),
            "exact": dict(bf16=False)}
 
 
-def measure(root: str, engines_only: bool = False) -> dict:
-    """One process's measurements, with root's package."""
+def measure(root: str, what: str = "all") -> dict:
+    """One process's measurements, with root's package: what is "all",
+    "engines" or "training"."""
     import importlib.util
     sys.path.insert(0, root)
     # root's package first: chip_smoke imports its timing helpers from the
@@ -62,6 +64,8 @@ def measure(root: str, engines_only: bool = False) -> dict:
     pkg = os.path.dirname(os.path.abspath(svision_tpu_torch.__file__))
     assert os.path.dirname(pkg) == root, pkg
     specs, params, out = smoke.random_specs(8192, seed=3), init_params(0), {}
+    if what == "training":
+        return measure_training(smoke, params)
     for mode, kw in ENGINES.items():
         eng = InferenceEngine(params, batch_size=smoke.B, **kw)
         eng.warmup()
@@ -69,7 +73,7 @@ def measure(root: str, engines_only: bool = False) -> dict:
         out[f"engine {mode} images/s"] = smoke.best_rate(eng, specs)
         del eng
         torch.cuda.empty_cache()
-    if engines_only:
+    if what == "engines":
         return out
     for v in smoke.check_pool_lrn():
         out[f"K2 {v['tail']} {v['dtype']} ms"] = v["ms"]
@@ -79,30 +83,34 @@ def measure(root: str, engines_only: bool = False) -> dict:
 
 
 def measure_training(smoke, params) -> dict:
-    """fit_device bf16 s2d: images/s over the second epoch, and the idle
-    share of that epoch profiled in another run."""
+    """fit_device on the s2d path, bf16 and f32: images/s over the second
+    epoch, and the idle share of that epoch profiled in another run."""
     import time
     import torch
     from torch.profiler import ProfilerActivity, profile
     from svision_tpu_torch.models.train import fit_device
     specs, labels = smoke.labeled(smoke.TRAIN_B * smoke.RATE_STEPS, seed=10)
-    kw = dict(epochs=2, batch_size=smoke.TRAIN_B,
-              compute_dtype=torch.bfloat16, device="cuda")
-    stamps = []
-    fit_device(params, specs, labels,
-               log=lambda m: stamps.append(time.perf_counter()), **kw)
-    rate = smoke.RATE_STEPS * smoke.TRAIN_B / (stamps[1] - stamps[0])
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    stamps.clear()
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        kw = dict(epochs=2, batch_size=smoke.TRAIN_B, compute_dtype=dtype,
+                  device="cuda")
+        stamps = []
+        fit_device(params, specs, labels,
+                   log=lambda m: stamps.append(time.perf_counter()), **kw)
+        rate = smoke.RATE_STEPS * smoke.TRAIN_B / (stamps[1] - stamps[0])
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        stamps.clear()
 
-    def epoch_end(_):
-        stamps.append(time.perf_counter())
-        (prof.start if len(stamps) == 1 else prof.stop)()
-    fit_device(params, specs, labels, log=epoch_end, **kw)
-    wall_ms = (stamps[1] - stamps[0]) * 1e3
-    _, busy_ms = smoke.device_time(prof, wall_ms, "fit_device epoch")
-    return {"fit_device bf16 s2d images/s": rate,
-            "fit_device bf16 s2d idle share": 1.0 - busy_ms / wall_ms}
+        def epoch_end(_):
+            stamps.append(time.perf_counter())
+            (prof.start if len(stamps) == 1 else prof.stop)()
+        fit_device(params, specs, labels, log=epoch_end, **kw)
+        wall_ms = (stamps[1] - stamps[0]) * 1e3
+        _, busy_ms = smoke.device_time(prof, wall_ms, "fit_device epoch")
+        out[f"fit_device {name} s2d images/s"] = rate
+        out[f"fit_device {name} s2d idle share"] = 1.0 - busy_ms / wall_ms
+    return out
 
 
 def summary(pairs: list) -> dict:
@@ -125,17 +133,21 @@ def summary(pairs: list) -> dict:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--measure"]:
-        print(json.dumps(measure(os.path.abspath(argv[1]),
-                                 "--engines-only" in argv[2:])))
+        print(json.dumps(measure(os.path.abspath(argv[1]), argv[2])))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", help="the parent's checkout")
     ap.add_argument("change", help="the change's checkout")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--out", help="write the results as JSON here")
-    ap.add_argument("--engines-only", action="store_true",
-                    help="measure the engines alone (no K2, no training)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--engines-only", action="store_true",
+                      help="measure the engines alone (no K2, no training)")
+    only.add_argument("--training-only", action="store_true",
+                      help="measure fit_device alone")
     args = ap.parse_args(argv)
+    what = ("engines" if args.engines_only else
+            "training" if args.training_only else "all")
     pairs = []
     for i in range(args.pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
@@ -143,8 +155,8 @@ def main(argv=None) -> int:
         for side in order:
             root = os.path.abspath(getattr(args, side))
             done = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--measure", root]
-                + (["--engines-only"] if args.engines_only else []),
+                [sys.executable, os.path.abspath(__file__), "--measure", root,
+                 what],
                 cwd=root, capture_output=True, text=True)
             if done.returncode != 0:
                 print(done.stdout + done.stderr, file=sys.stderr)

@@ -9,12 +9,13 @@ same work, captured once and replayed, so the host enqueues one graph where
 it enqueued every kernel.
 
 Launch counts. Each kernel wrapper (ops/raster_kernel.render_raster,
-ops/fused_pool_lrn.bias_relu_pool_lrn, ops/fused_conv1.conv1_fused_raster)
-ticks its `launches` counter in Python when it enqueues its kernel. A
-capture ticks it though nothing runs, and a replay runs the kernels without
-a tick. capture() takes back a capture's ticks and keeps how many launches
-of each wrapper the graph holds, and Graph.replay() adds them, so every
-counter keeps meaning "kernels executed".
+ops/fused_pool_lrn.bias_relu_pool_lrn and bias_relu_pool_lrn_backward,
+ops/fused_conv1.conv1_fused_raster) ticks its `launches` counter in
+Python when it enqueues its kernel. A capture ticks it though nothing
+runs, and a replay runs the kernels without a tick. capture() takes back
+a capture's ticks and keeps how many launches of each wrapper the graph
+holds, and Graph.replay() adds them, so every counter keeps meaning
+"kernels executed".
 
 Captures use capture_error_mode="thread_local": the engine's warm-up
 captures on a thread (warmup_async) while the caller's thread goes on, and
@@ -43,6 +44,7 @@ WARMUP_STEPS = 3
 def kernel_wrappers() -> Tuple[Callable, ...]:
     """The hand-written kernels' wrappers, each with its `launches`."""
     return (raster_kernel.render_raster, fused_pool_lrn.bias_relu_pool_lrn,
+            fused_pool_lrn.bias_relu_pool_lrn_backward,
             fused_conv1.conv1_fused_raster)
 
 

@@ -7,10 +7,13 @@ clip, and the training pipeline from labeled candidate specs to a
 TF1-named checkpoint that both packages read.
 
 The differentiable forward composes torch ops (cuDNN/cuBLAS convolutions
-and GEMMs, F.max_pool2d, the TF-semantics lrn), as the JAX trainer
-composes XLA ops. The hand-written kernels are not differentiable and
-refuse inputs that require grad; K1 renders the image path's batches,
-which need no gradient, and K1 + K2 run evaluate's inference forward.
+and GEMMs, ReLU and the conv5 pool), as the JAX trainer composes XLA ops,
+except for the bias/ReLU/pool/LRN tails after conv1 and conv2: those run
+through fused_pool_lrn.BiasReluPoolLRN, K2 forward and a hand-written
+backward kernel on the card, their plain versions on the CPU. The
+kernels' inference wrappers are not differentiable and refuse inputs
+that require grad; K1 renders the image path's batches, which need no
+gradient, and K1 + K2 run evaluate's inference forward.
 
 Randomness comes from explicit torch.Generators (dropout, fit_device's
 shuffle and augmentation) and, in fit, from the JAX loop's
@@ -49,9 +52,10 @@ from svision_tpu_torch import graphs
 from svision_tpu_torch.device import resolve_device
 from svision_tpu_torch.infer.engine import exact_f32
 from svision_tpu_torch.models import alexnet
-from svision_tpu_torch.models.alexnet import (AlexNet, fold_conv1_math, lrn,
+from svision_tpu_torch.models.alexnet import (AlexNet, fold_conv1_math,
                                               params_to_numpy)
 from svision_tpu_torch.ops import rasterize
+from svision_tpu_torch.ops.fused_pool_lrn import BiasReluPoolLRN
 from svision_tpu_torch.ops.raster_kernel import render_images
 from svision_tpu_torch.ops.rasterize import CANVAS
 
@@ -94,7 +98,8 @@ def _features(p: Params, h: torch.Tensor, cd, s2d: bool) -> torch.Tensor:
             w, stride, pad = w_s2d.permute(3, 2, 0, 1), 1, 0
         h = F.conv2d(h, w.to(cd), None, stride, pad, 1, groups)
         if name in ("conv1", "conv2"):
-            h = bias_relu_pool_lrn_autograd(h, b.to(cd))
+            h = bias_relu_pool_lrn_autograd(h.permute(0, 2, 3, 1),
+                                            b.to(cd)).permute(0, 3, 1, 2)
         else:
             h = torch.relu(h + b.to(cd)[:, None, None])
             if name == "conv5":
@@ -103,10 +108,11 @@ def _features(p: Params, h: torch.Tensor, cd, s2d: bool) -> torch.Tensor:
 
 
 def bias_relu_pool_lrn_autograd(h: torch.Tensor, b: torch.Tensor):
-    """What K2 computes, in differentiable torch ops on NCHW h: relu(h +
-    b) -> 3x3 stride-2 max-pool -> TF LRN, in h's dtype."""
-    h = F.max_pool2d(torch.relu(h + b[:, None, None]), 3, 2)
-    return lrn(h.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    """K2's function, differentiable, on NHWC h [N,H,W,C] (the NHWC view
+    of a channels-last conv output is contiguous): relu(h + b) -> 3x3
+    stride-2 max-pool -> TF LRN -> [N,Ho,Wo,C] in h's dtype, through
+    BiasReluPoolLRN (K2 and its backward kernel on the card)."""
+    return BiasReluPoolLRN.apply(h, b)
 
 
 def _dense_relu(h, w, b, cd):

@@ -38,6 +38,9 @@ ENTRIES = {
     "svt_render_raster": ("raster.cu", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "svt_bias_relu_pool_lrn": ("pool_lrn.cu",
                                [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "svt_bias_relu_pool_lrn_backward": (
+        "pool_lrn_backward.cu",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_conv1_fused_raster": ("conv1_raster.cu",
                                [_P, _P, _P, _P, _P, _I, _I, _P]),
 }

@@ -193,6 +193,69 @@ def test_pool_lrn_kernel(cuda, dtype, h, c, n):
     _check_pool_lrn(cuda, n, h, h, c, dtype, dtype)
 
 
+def _check_pool_lrn_backward(dev, n, h, c, dtype, ties):
+    """One launch per call; dx within 1e-5 (f32, with the same positions
+    receiving a gradient) or 1e-2 (bf16) of the plain version's largest
+    entry, the bias gradient likewise."""
+    gen = torch.Generator(device=dev).manual_seed(n * 1000 + c)
+    ho = (h - 3) // 2 + 1
+    x = torch.randn((n, h, h, c), generator=gen, device=dev) * 2
+    if ties:
+        # a raster's blank regions: one constant, and repeated patches
+        x[:, : h // 2] = 0.5
+        x[:, h // 2:, : h // 3] = x[:, h // 2:, h // 3: 2 * (h // 3)]
+    x = x.to(dtype)
+    b = torch.randn((c,), generator=gen, device=dev).to(dtype)
+    dy = torch.randn((n, ho, ho, c), generator=gen, device=dev).to(dtype)
+    before = fused_pool_lrn.bias_relu_pool_lrn_backward.launches
+    dx, db = fused_pool_lrn.bias_relu_pool_lrn_backward(x, b, dy)
+    assert fused_pool_lrn.bias_relu_pool_lrn_backward.launches == before + 1
+    want_dx, want_db = fused_pool_lrn.bias_relu_pool_lrn_backward_plain(x, b, dy)
+    assert dx.shape == x.shape and dx.dtype == dtype and db.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in ((dx, want_dx), (db, want_db)):
+        g, w = got.float(), want.float()
+        assert (g - w).abs().max() <= tol * w.abs().max()
+    if dtype == torch.float32:
+        assert torch.equal(dx != 0, want_dx != 0)
+    if ties:
+        assert (dx[:, 1: h // 2: 2] == 0).all()   # odd rows of the blank half
+
+
+@pytest.mark.parametrize("n", [1, 64, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c", [(55, 96), (27, 256)])
+def test_pool_lrn_backward_kernel(cuda, dtype, h, c, n):
+    """K2's backward at both tails, at batch 1, the training batch of 64
+    and 129."""
+    _check_pool_lrn_backward(cuda, n, h, c, dtype, ties=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c", [(55, 96), (27, 256)])
+def test_pool_lrn_backward_kernel_ties(cuda, dtype, h, c):
+    """A tie-heavy, mostly blank input routes each window's gradient to its
+    first maximum, as the plain version does."""
+    _check_pool_lrn_backward(cuda, 64, h, c, dtype, ties=True)
+
+
+@pytest.mark.parametrize("h,w,c", [(13, 11, 16), (8, 9, 400), (7, 7, 8)])
+def test_pool_lrn_backward_kernel_other_shapes(cuda, h, w, c):
+    """Runtime shapes beside the tails: W != H, an even H (its last row
+    receives nothing), 50 lanes a pixel (7 pixels a 384-thread block),
+    the least C, 8."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn((3, h, w, c), generator=gen, device=cuda)
+    b = torch.randn((c,), generator=gen, device=cuda)
+    dy = torch.randn((3, (h - 3) // 2 + 1, (w - 3) // 2 + 1, c),
+                     generator=gen, device=cuda)
+    dx, db = fused_pool_lrn.bias_relu_pool_lrn_backward(x, b, dy)
+    want_dx, want_db = fused_pool_lrn.bias_relu_pool_lrn_backward_plain(x, b, dy)
+    assert (dx - want_dx).abs().max() <= 1e-5 * want_dx.abs().max()
+    assert (db - want_db).abs().max() <= 1e-5 * want_db.abs().max()
+    assert torch.equal(dx != 0, want_dx != 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,w,c,bias_dtype", [
     (55, 55, 64, torch.float32),      # runtime C, 8 channels a lane
@@ -284,6 +347,28 @@ def test_wrappers_reject_bad_inputs(cuda):
         fused_pool_lrn.bias_relu_pool_lrn(flat[1:].view(x.shape), b)
     with pytest.raises(ValueError):
         fused_pool_lrn.bias_relu_pool_lrn(x, b[:95])
+    # its backward: a non-contiguous or misaligned dy, f64, mixed dtypes,
+    # a C that is not a multiple of 8 or beyond a block's 384 lanes
+    bwd = fused_pool_lrn.bias_relu_pool_lrn_backward
+    dy = torch.zeros((2, 27, 27, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        bwd(x, b, dy.transpose(1, 2))
+    flat = torch.zeros((dy.numel() + 1,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        bwd(x, b, flat[1:].view(dy.shape))
+    with pytest.raises(ValueError):
+        bwd(x.double(), b.double(), dy.double())
+    with pytest.raises(ValueError):
+        bwd(x, b, dy.float())
+    for c in (12, 3080):
+        with pytest.raises(ValueError):
+            bwd(torch.zeros((1, 3, 3, c), device=cuda),
+                torch.zeros(c, device=cuda),
+                torch.zeros((1, 1, 1, c), device=cuda))
+    # the autograd Function: f64 has no kernel, and raises on the card
+    with pytest.raises(ValueError):
+        fused_pool_lrn.BiasReluPoolLRN.apply(
+            x.double().requires_grad_(), b.double())
 
 
 @pytest.mark.parametrize("s2d", [False, True])
@@ -319,9 +404,9 @@ def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
 
 # launches per batch of each engine mode's step
 PER_BATCH = {True: {"render_raster": 0, "bias_relu_pool_lrn": 2,
-                    "conv1_fused_raster": 1},
+                    "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
              False: {"render_raster": 1, "bias_relu_pool_lrn": 2,
-                     "conv1_fused_raster": 0}}
+                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
 
 
 def _launches():
@@ -389,7 +474,8 @@ def test_engine_mode_graphs_equal_eager(cuda, mode):
         assert np.array_equal(p, ep) and np.array_equal(s, es), n
     got = {k: v - start[k] for k, v in _launches().items()}
     names = ("render_raster", "bias_relu_pool_lrn", "conv1_fused_raster")
-    assert got == {k: v * batches for k, v in zip(names, per_batch)}
+    assert got == {"bias_relu_pool_lrn_backward": 0,
+                   **{k: v * batches for k, v in zip(names, per_batch)}}
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -428,9 +514,10 @@ def test_device_step_graph_equals_eager(cuda, s2d):
     """fit_device's step (make_device_step) at keep_prob 1 without
     augmentation: after the eager warm-up steps, the first replay against
     an eager step from the same weights, momentum and batch: the same loss
-    and parameters within 1e-6 of their largest entries (max-pool's
+    and parameters within 1e-6 of their largest entries (conv5's max-pool
     backward adds with atomics on the card, so not bit for bit). K1 runs
-    once a step on the image path, replays counted."""
+    once a step on the image path, K2 and its backward twice a step on
+    both, replays counted."""
     from svision_tpu_torch import graphs
     from svision_tpu_torch.models import train
     from svision_tpu_torch.models.alexnet import (AlexNet, params_to_numpy)
@@ -448,7 +535,7 @@ def test_device_step_graph_equals_eager(cuda, s2d):
 
     model = AlexNet.trainable(init_params(0), device=cuda)
     opt, step = trainer(model, eager=False)
-    before = raster_kernel.render_raster.launches
+    before = _launches()
     rows = [torch.arange(16 * i, 16 * (i + 1), device=cuda)
             for i in range(graphs.WARMUP_STEPS + 1)]
     for idx in rows[:-1]:
@@ -460,8 +547,10 @@ def test_device_step_graph_equals_eager(cuda, s2d):
         twin_opt.state[q]["momentum_buffer"] = \
             opt.state[p]["momentum_buffer"].clone()
     got, want = float(step(rows[-1], flip)), float(twin_step(rows[-1], flip))
-    assert raster_kernel.render_raster.launches - before == \
-        (0 if s2d else 2 + graphs.WARMUP_STEPS)
+    steps = 2 + graphs.WARMUP_STEPS
+    assert {k: v - before[k] for k, v in _launches().items()} == {
+        "render_raster": 0 if s2d else steps, "bias_relu_pool_lrn": 2 * steps,
+        "bias_relu_pool_lrn_backward": 2 * steps, "conv1_fused_raster": 0}
     assert abs(got - want) <= 1e-6 * abs(want)
     for (k, p), q in zip(model.named_parameters(), twin.parameters()):
         assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k
