@@ -17,8 +17,9 @@ Phases, each of which fails the run with a non-zero exit on any check:
      batch, bf16 at batches of 1, 129 and 8,192, f32 at 1, 129 and 4,096
      and on a densely lit batch, with the route K3 f32 stands for in the
      exact step (K1's images, then conv1 through cuDNN) timed beside it;
-     K2's backward kernel at the training batch of 64, both tails, both
-     dtypes, on random and on tie-heavy inputs;
+     K2's backward kernel at the training batch of 64 and at 1 and 129,
+     both tails, both dtypes, on random and on tie-heavy inputs, and a
+     CUDA graph of it replayed against its eager call;
   3. run the InferenceEngine in both numeric modes: its CUDA graphs bit for
      bit against its eager step at 1, 128, 129, 17 x 128 + 5, chunk + 20
      batches and 8,192 specs, images/s graphed and eager, and 8,192 specs
@@ -490,16 +491,18 @@ def tie_heavy(x):
 
 
 def check_pool_lrn_backward() -> list:
-    """K2's backward kernel at both tails and in both dtypes at the
-    training batch TRAIN_B, on random inputs and on tie_heavy ones: dx
-    against the plain version, f32 within 1e-5 of the largest entry with
-    the same positions receiving a gradient, bf16 within 1e-2; the bias
-    gradient within 1e-5 (f32) / 1e-2 (bf16) of its largest entry. Times
-    (random inputs): the wrapper (the kernel, then torch's sum of its
-    per-row bias partials), that sum alone, and the plain version, each
-    the mean of back-to-back launches, the queue held. The bound counts x,
-    the bias and dy read once and dx and the bias gradient written once.
-    No single PyTorch call computes this function (library_ms null)."""
+    """K2's backward kernel at both tails and in both dtypes, at the
+    training batch TRAIN_B and at 1 and 129 (runs that start mid-image and
+    cross images), on random inputs and on tie_heavy ones: dx against the
+    plain version, f32 within 1e-5 of the largest entry with the same
+    positions receiving a gradient, bf16 within 1e-2; the bias gradient
+    (summed in the kernel) within 1e-5 (f32) / 1e-2 (bf16) of its largest
+    entry; whether dx is bit-equal. At TRAIN_B on random inputs: the
+    wrapper's time and the plain version's, each the mean of back-to-back
+    launches, the queue held, and a CUDA graph of the wrapper replayed
+    twice, equal to the eager call bit for bit. The bound counts x, the
+    bias and dy read once and dx and the bias gradient written once. No
+    single PyTorch call computes this function (library_ms null)."""
     import torch
     from svision_tpu_torch.ops import fused_pool_lrn
     dev = torch.device("cuda")
@@ -509,49 +512,71 @@ def check_pool_lrn_backward() -> list:
     variants = []
     for h, c, tail in ((55, 96, "conv1"), (27, 256, "conv2")):
         ho = (h - 3) // 2 + 1
-        x32 = torch.randn((TRAIN_B, h, h, c), generator=gen, device=dev) * 2
-        b32 = torch.randn((c,), generator=gen, device=dev)
-        dy32 = torch.randn((TRAIN_B, ho, ho, c), generator=gen, device=dev)
-        for case, xc in (("random", x32), ("ties", tie_heavy(x32))):
-            for dt, kind, tol in ((torch.bfloat16, "bf16", 1e-2),
-                                  (torch.float32, "f32", 1e-5)):
-                x, b, dy = xc.to(dt), b32.to(dt), dy32.to(dt)
-                dx, db = k(x, b, dy)
-                want_dx, want_db = plain(x, b, dy)
-                torch.cuda.synchronize()
-                err = (dx.float() - want_dx.float()).abs().max().item()
-                scale = want_dx.float().abs().max().item()
-                db_err = (db.float() - want_db.float()).abs().max().item()
-                db_scale = want_db.float().abs().max().item()
-                same = bool(torch.equal(dx != 0, want_dx != 0))
-                assert err <= tol * scale, \
-                    f"K2 backward {tail} {kind} {case}: dx {err} > {tol} * {scale}"
-                assert db_err <= tol * db_scale, \
-                    f"K2 backward {tail} {kind} {case}: db {db_err}"
-                assert same or kind == "bf16", \
-                    f"K2 backward {tail} {kind} {case}: other positions"
-                v = dict(tail=tail, dtype=kind, case=case,
-                         shape=list(x.shape), max_abs_err=err,
-                         max_abs_dx=scale, db_max_abs_err=db_err,
-                         same_positions=same,
-                         bit_equal=bool(torch.equal(dx, want_dx)))
-                if case == "random":
-                    moved = nbytes(x, b, dy, dx, db)
-                    # per output: the window's 9 adds and maxima, the LRN
-                    # and its derivative; per input: 9 taps' routes, the add
-                    flops = 60.0 * dy.numel() + 20.0 * x.numel()
-                    bnd, by = bound_ms(moved, flops, "f32")
-                    part = torch.zeros((TRAIN_B * ho, c), device=dev)
-                    ms = time_ms(lambda: k(x, b, dy))
-                    v.update(ms=ms, plain_ms=time_ms(lambda: plain(x, b, dy),
-                                                     reps=PLAIN_REPS),
-                             db_sum_ms=time_ms(lambda: part.sum(0)),
-                             bound_ms=bnd, bound_by=by, bound_fraction=bnd / ms,
-                             bytes_moved=moved, library_ms=None)
-                variants.append(v)
-                log(f"K2 backward {tail} {kind} {case} B={TRAIN_B} "
-                    f"({REPORT['device']['nvidia_smi']}): ok, {v}")
+        for n in (TRAIN_B, 1, 129):
+            x32 = torch.randn((n, h, h, c), generator=gen, device=dev) * 2
+            b32 = torch.randn((c,), generator=gen, device=dev)
+            dy32 = torch.randn((n, ho, ho, c), generator=gen, device=dev)
+            for case, xc in (("random", x32), ("ties", tie_heavy(x32))):
+                for dt, kind, tol in ((torch.bfloat16, "bf16", 1e-2),
+                                      (torch.float32, "f32", 1e-5)):
+                    x, b, dy = xc.to(dt), b32.to(dt), dy32.to(dt)
+                    dx, db = k(x, b, dy)
+                    want_dx, want_db = plain(x, b, dy)
+                    torch.cuda.synchronize()
+                    err = (dx.float() - want_dx.float()).abs().max().item()
+                    scale = want_dx.float().abs().max().item()
+                    db_err = (db.float() - want_db.float()).abs().max().item()
+                    db_scale = want_db.float().abs().max().item()
+                    same = bool(torch.equal(dx != 0, want_dx != 0))
+                    where = f"K2 backward {tail} {kind} {case} B={n}"
+                    assert err <= tol * scale, f"{where}: dx {err} > {tol} * {scale}"
+                    assert db_err <= tol * db_scale, f"{where}: db {db_err}"
+                    assert same or kind == "bf16", f"{where}: other positions"
+                    v = dict(tail=tail, dtype=kind, case=case, batch=n,
+                             shape=list(x.shape), max_abs_err=err,
+                             max_abs_dx=scale, db_max_abs_err=db_err,
+                             same_positions=same,
+                             bit_equal=bool(torch.equal(dx, want_dx)))
+                    if case == "random" and n == TRAIN_B:
+                        v.update(backward_timing(k, plain, x, b, dy, dx, db))
+                    variants.append(v)
+                    log(f"{where} ({REPORT['device']['nvidia_smi']}): ok, {v}")
     return variants
+
+
+def backward_timing(k, plain, x, b, dy, dx, db) -> dict:
+    """The backward's wrapper and plain times and bound at one input, and
+    a CUDA graph of the wrapper replayed twice against its eager (dx,
+    db)."""
+    import torch
+    moved = nbytes(x, b, dy, dx, db)
+    # per output: the window's 9 adds and maxima, the LRN and its
+    # derivative; per input: 9 taps' routes, the add
+    flops = 60.0 * dy.numel() + 20.0 * x.numel()
+    bnd, by = bound_ms(moved, flops, "f32")
+    ms = time_ms(lambda: k(x, b, dy))
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k(x, b, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        gdx, gdb = k(x, b, dy)
+    replays = []
+    for _ in range(2):
+        gdx.zero_()
+        gdb.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(bool(torch.equal(gdx, dx) and torch.equal(gdb, db)))
+    assert all(replays), f"K2 backward graph replays {replays} != eager"
+    del graph
+    return dict(ms=ms, plain_ms=time_ms(lambda: plain(x, b, dy),
+                                        reps=PLAIN_REPS),
+                bound_ms=bnd, bound_by=by, bound_fraction=bnd / ms,
+                bytes_moved=moved, library_ms=None,
+                graph_replays_bit_equal=replays)
 
 
 def k3_bf16_checks(dense_k3, seg, w, lit, got) -> dict:
@@ -2432,8 +2457,7 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, at=dict(dtype=dtype, shape=main["shape"]),
-            **{k: main[k] for k in ("warm_ms", "cold_ms", "db_sum_ms")
-               if k in main},
+            **{k: main[k] for k in ("warm_ms", "cold_ms") if k in main},
             variants=kernels[name], ptxas=build["ptxas"][src]))
         if name == "conv1_fused_raster":
             rows[-1]["hgmma_in_sass"] = build["k3_hgmma"]

@@ -26,7 +26,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
                       "kernels")
-_HEADERS = ("raster_common.cuh",)
+_HEADERS = ("bulk_ring.cuh", "raster_common.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -40,7 +40,7 @@ ENTRIES = {
                                [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_bias_relu_pool_lrn_backward": (
         "pool_lrn_backward.cu",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_conv1_fused_raster": ("conv1_raster.cu",
                                [_P, _P, _P, _P, _P, _I, _I, _P]),
 }

@@ -172,10 +172,9 @@ def bias_relu_pool_lrn_backward(x: torch.Tensor, bias: torch.Tensor,
     on the card x and dy must be contiguous, 16-byte aligned f32 or bf16,
     C a multiple of BACKWARD_LANE and at most MAX_BACKWARD_C (the kernel
     moves 8 channels in 16-byte accesses), and the kernel launches or the
-    call raises. The kernel
-    recomputes the forward from x and bias, so nothing else is saved.
-    dbias is the sum (torch's) of the kernel's per-output-row f32 partial
-    sums. Not differentiable (_kernels.check_no_grad)."""
+    call raises. The kernel recomputes the forward from x and bias, so
+    nothing else is saved, and writes dbias itself: no torch op follows
+    its launch. Not differentiable (_kernels.check_no_grad)."""
     _kernels.check_no_grad("bias_relu_pool_lrn_backward", x, bias, dy)
     if x.dim() != 4:
         raise ValueError("bias_relu_pool_lrn_backward: x must be [N,H,W,C], "
@@ -208,16 +207,19 @@ def bias_relu_pool_lrn_backward(x: torch.Tensor, bias: torch.Tensor,
     dx = torch.empty_like(x)
     if not n:
         return dx, torch.zeros_like(bias)
-    part = torch.empty((n * ho, c), dtype=torch.float32, device=x.device)
+    db = torch.empty_like(bias)
+    # the blocks' f32 bias-gradient sums, then the call's ticket
+    scratch = torch.empty(n * ho * c + 4, dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         _kernels.launch("svt_bias_relu_pool_lrn_backward", x.data_ptr(),
                         bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                        part.data_ptr(), n, h, w, c,
+                        db.data_ptr(), scratch.data_ptr(), n, h, w, c,
                         int(x.dtype == torch.bfloat16),
                         int(bias.dtype == torch.bfloat16),
                         _kernels.stream_of(x))
     bias_relu_pool_lrn_backward.launches += 1
-    return dx, part.sum(0).to(bias.dtype)
+    return dx, db
 
 
 bias_relu_pool_lrn_backward.launches = 0

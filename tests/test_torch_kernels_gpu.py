@@ -222,13 +222,62 @@ def _check_pool_lrn_backward(dev, n, h, c, dtype, ties):
         assert (dx[:, 1: h // 2: 2] == 0).all()   # odd rows of the blank half
 
 
-@pytest.mark.parametrize("n", [1, 64, 129])
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,c", [(55, 96), (27, 256)])
 def test_pool_lrn_backward_kernel(cuda, dtype, h, c, n):
-    """K2's backward at both tails, at batch 1, the training batch of 64
-    and 129."""
+    """K2's backward at both tails, at the training batch of 64 and at
+    batches whose blocks' runs of output rows start mid-image and cross
+    images."""
     _check_pool_lrn_backward(cuda, n, h, c, dtype, ties=False)
+
+
+def _backward_inputs(dev, n, h, c, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ho = (h - 3) // 2 + 1
+    return (torch.randn((n, h, h, c), generator=gen, device=dev).to(dtype),
+            torch.randn((c,), generator=gen, device=dev).to(dtype),
+            torch.randn((n, ho, ho, c), generator=gen, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c", [(55, 96), (27, 256)])
+def test_pool_lrn_backward_kernel_graph(cuda, dtype, h, c):
+    """A CUDA graph of the wrapper, replayed twice, equals the eager call
+    bit for bit in dx and the bias gradient (the kernel's sums run in a
+    fixed order)."""
+    x, b, dy = _backward_inputs(cuda, 64, h, c, dtype, 7)
+    dx, db = fused_pool_lrn.bias_relu_pool_lrn_backward(x, b, dy)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gdx, gdb = fused_pool_lrn.bias_relu_pool_lrn_backward(x, b, dy)
+    for _ in range(2):
+        gdx.zero_()
+        gdb.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gdx, dx) and torch.equal(gdb, db)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_lrn_backward_kernel_two_streams(cuda, dtype):
+    """Two calls at once on two streams, at the two tails: each equals its
+    own call alone (each call counts its blocks on its own ticket)."""
+    one = _backward_inputs(cuda, 64, 55, 96, dtype, 8)
+    two = _backward_inputs(cuda, 64, 27, 256, dtype, 9)
+    alone = [fused_pool_lrn.bias_relu_pool_lrn_backward(*t) for t in (one, two)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(3):
+        for s, t in zip(streams, (one, two)):
+            with torch.cuda.stream(s):
+                got.append(fused_pool_lrn.bias_relu_pool_lrn_backward(*t))
+    torch.cuda.synchronize()
+    for i, (dx, db) in enumerate(got):
+        want_dx, want_db = alone[i % 2]
+        assert torch.equal(dx, want_dx) and torch.equal(db, want_db)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -239,21 +288,36 @@ def test_pool_lrn_backward_kernel_ties(cuda, dtype, h, c):
     _check_pool_lrn_backward(cuda, 64, h, c, dtype, ties=True)
 
 
+def _check_backward_shape(dev, h, w, c, dtype=torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn((3, h, w, c), generator=gen, device=dev).to(dtype)
+    b = torch.randn((c,), generator=gen, device=dev).to(dtype)
+    dy = torch.randn((3, (h - 3) // 2 + 1, (w - 3) // 2 + 1, c),
+                     generator=gen, device=dev).to(dtype)
+    dx, db = fused_pool_lrn.bias_relu_pool_lrn_backward(x, b, dy)
+    want_dx, want_db = fused_pool_lrn.bias_relu_pool_lrn_backward_plain(x, b, dy)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in ((dx, want_dx), (db, want_db)):
+        g, ref = got.float(), want.float()
+        assert (g - ref).abs().max() <= tol * ref.abs().max()
+    if dtype == torch.float32:
+        assert torch.equal(dx != 0, want_dx != 0)
+
+
 @pytest.mark.parametrize("h,w,c", [(13, 11, 16), (8, 9, 400), (7, 7, 8)])
 def test_pool_lrn_backward_kernel_other_shapes(cuda, h, w, c):
     """Runtime shapes beside the tails: W != H, an even H (its last row
-    receives nothing), 50 lanes a pixel (7 pixels a 384-thread block),
+    receives nothing), 50 lanes a pixel (a warp's pixels start mid-warp),
     the least C, 8."""
-    gen = torch.Generator(device=cuda).manual_seed(c)
-    x = torch.randn((3, h, w, c), generator=gen, device=cuda)
-    b = torch.randn((c,), generator=gen, device=cuda)
-    dy = torch.randn((3, (h - 3) // 2 + 1, (w - 3) // 2 + 1, c),
-                     generator=gen, device=cuda)
-    dx, db = fused_pool_lrn.bias_relu_pool_lrn_backward(x, b, dy)
-    want_dx, want_db = fused_pool_lrn.bias_relu_pool_lrn_backward_plain(x, b, dy)
-    assert (dx - want_dx).abs().max() <= 1e-5 * want_dx.abs().max()
-    assert (db - want_db).abs().max() <= 1e-5 * want_db.abs().max()
-    assert torch.equal(dx != 0, want_dx != 0)
+    _check_backward_shape(cuda, h, w, c)
+
+
+@pytest.mark.parametrize("h,w,c,dtype", [(5, 5, 3072, torch.float32),
+                                         (9, 9, 3072, torch.bfloat16)])
+def test_pool_lrn_backward_kernel_wide_rows(cuda, h, w, c, dtype):
+    """Rows too wide for the shared-memory ring take the kernel's simple
+    path (a block per output row), at the widest C the wrapper takes."""
+    _check_backward_shape(cuda, h, w, c, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
