@@ -37,6 +37,15 @@ Phases, each of which fails the run with a non-zero exit on any check:
      --exact on the card and on the CPU, every VCF of the two output trees
      equal outside QUAL (QUAL within +/-15) and every other file byte for
      byte, and once in the default mode on the card;
+ 4b. install a copy of the tree offline (pip install --no-deps
+     --no-build-isolation --no-index --prefix) into a scratch prefix and
+     run the installed svision-tpu-torch command on the card, in the
+     default mode and with --exact, from outside the checkout with the
+     prefix's site-packages alone on PYTHONPATH and an empty HOME: its
+     kernels build cold from the installed sources into
+     ~/.cache/svision-tpu/kernels (nothing under site-packages or in the
+     checkout's build/kernels), and each VCF equals phase 4's of its mode
+     byte for byte;
   5. serve: a warm default-mode server (svision_tpu_torch.serve) in this
      process answers three concurrent socket clients, two requests each, on
      phase 4's sample and a two-chromosome one; every VCF must equal a
@@ -1219,8 +1228,9 @@ def check_cli(fx: dict, work: str) -> dict:
         return vcf, dict(r, records=len(recs))
 
     out = {}
-    _, out["default"] = run("gpu_default", "default", [])
+    default_vcf, out["default"] = run("gpu_default", "default", [])
     gpu_vcf, out["exact"] = run("gpu_exact", "exact", ["--exact"])
+    out["vcf"] = {"default": default_vcf, "exact": gpu_vcf}
     cpu_vcf, out["exact_cpu"] = run("cpu_exact", "exact",
                                     ["--exact", "--device", "cpu"])
     n = len(_records(gpu_vcf))
@@ -1256,6 +1266,113 @@ def check_cli(fx: dict, work: str) -> dict:
             f"{out['modes'][mode]['wall_s']:.1f} s")
     out["modes_s"] = time.perf_counter() - t_modes
     log(f"cli optional modes: {out['modes_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the installed command
+# ---------------------------------------------------------------------------
+
+# what an install copies: the packaging files and both packages
+INSTALL_TREE = ("pyproject.toml", "setup.py", "svision_tpu",
+                "svision_tpu_torch")
+
+
+def install_copy(root: str) -> dict:
+    """Install a copy of the tree offline into <root>/prefix. setuptools
+    writes build/ and an egg-info into the directory it installs from, so
+    it installs from a copy (<root>/src, build/, __pycache__ and *.so left
+    out) and the checkout gains nothing. Returns the prefix's bin and
+    site-packages, an empty HOME and the install's seconds."""
+    import glob
+    import shutil
+    src, prefix, home = (os.path.join(root, d)
+                         for d in ("src", "prefix", "home"))
+    os.makedirs(src)
+    os.makedirs(home)
+    for name in INSTALL_TREE:
+        path = os.path.join(ROOT, name)
+        if os.path.isdir(path):
+            shutil.copytree(path, os.path.join(src, name),
+                            ignore=shutil.ignore_patterns(
+                                "build", "__pycache__", "*.so"))
+        else:
+            shutil.copy(path, os.path.join(src, name))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "pip", "install", "--no-deps",
+                        "--no-build-isolation", "--no-index", "--no-cache-dir",
+                        "--prefix", prefix, src], capture_output=True,
+                       text=True, env=dict(os.environ, HOME=home), timeout=300)
+    install_s = time.perf_counter() - t0
+    assert p.returncode == 0, f"pip install failed:\n{p.stdout}{p.stderr}"
+    (site,) = glob.glob(os.path.join(prefix, "lib", "python*",
+                                     "site-packages"))
+    return dict(bin=os.path.join(prefix, "bin"), site=site, home=home,
+                install_s=install_s)
+
+
+def check_installed(fx: dict, work: str, vcfs: dict) -> dict:
+    """Phase 4b: install the tree into a scratch prefix and run the
+    installed svision-tpu-torch on the card, from outside the checkout
+    with PYTHONPATH the prefix's site-packages alone and an empty HOME (a
+    cold kernel cache), once in the default mode and once with --exact on
+    phase 4's sample and weights. The package resolves to the prefix, the
+    kernel libraries of the installed sources are built into
+    HOME/.cache/svision-tpu/kernels and nowhere else, and each VCF equals
+    phase 4's in-process VCF of its mode byte for byte."""
+    import glob
+    root = os.path.join(work, "installed")
+    inst = install_copy(root)
+    log(f"install: {inst['install_s']:.3f} s")
+    env = dict(os.environ, PYTHONPATH=inst["site"], HOME=inst["home"])
+    checkout_kernels = os.path.join(ROOT, "build", "kernels")
+    before = sorted(os.listdir(checkout_kernels))
+    code = ("import json, svision_tpu_torch; "
+            "from svision_tpu_torch.ops import _kernels as k; "
+            "print(json.dumps([svision_tpu_torch.__file__, k._BUILD, "
+            "[k._lib_path(s) for s in k.SOURCES]]))")
+    p = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    pkg, build, libs = json.loads(p.stdout)
+    assert pkg == os.path.join(inst["site"], "svision_tpu_torch",
+                               "__init__.py"), f"installed run imports {pkg}"
+    cache = os.path.join(inst["home"], ".cache", "svision-tpu", "kernels")
+    assert build == cache and not os.path.exists(cache), build
+    assert all(os.path.dirname(lib) == cache for lib in libs), libs
+
+    bam, genome, name, support = SAMPLES["plain"]
+    out = dict(install_s=inst["install_s"])
+    for mode, flags in (("default", []), ("exact", ["--exact"])):
+        outdir = os.path.join(root, mode)
+        argv = [os.path.join(inst["bin"], "svision-tpu-torch"), "-o", outdir,
+                "-b", fx[bam], "-g", fx[genome], "-m", fx["weights"],
+                "-n", name, "-s", support, *flags]
+        t0 = time.perf_counter()
+        p = subprocess.run(argv, cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        assert p.returncode == 0, \
+            f"installed {mode} run exited {p.returncode}:\n{p.stderr[-3000:]}"
+        (vcf,) = glob.glob(os.path.join(outdir, "*.vcf"))
+        same_bytes(vcf, vcfs[mode], f"installed {mode} VCF")
+        out[f"{mode}_wall_s"] = wall
+        log(f"installed svision-tpu-torch {' '.join(flags) or '(default)'}: "
+            f"{len(_records(vcf))} records, VCF equal to phase 4's byte for "
+            f"byte, {wall:.3f} s")
+    missing = [lib for lib in libs if not os.path.exists(lib)]
+    assert not missing, f"kernel libraries not built into the cache: {missing}"
+    # the cold build: from the cache directory's creation (its parent's
+    # mtime) to the last library's ptxas log, written once every nvcc ended
+    out["cold_build_s"] = (
+        max(os.path.getmtime(lib + ".log") for lib in libs)
+        - os.path.getmtime(os.path.dirname(cache)))
+    assert not os.path.exists(os.path.join(inst["site"], "build")), \
+        "the installed run built under site-packages"
+    assert sorted(os.listdir(checkout_kernels)) == before, \
+        "the installed run built into the checkout"
+    log(f"installed kernels: {len(libs)} libraries built into the cache "
+        f"cold in {out['cold_build_s']:.3f} s")
     return out
 
 
@@ -2535,6 +2652,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         REPORT["cli"] = check_cli(fx, work)
         log(f"phase 4: CLI path ok ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        REPORT["installed"] = check_installed(fx, work, REPORT["cli"]["vcf"])
+        log(f"phase 4b: the installed command ok "
+            f"({time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         REPORT["serve"] = check_serve(fx, work,
                                       REPORT["cli"]["default"]["wall_s"])

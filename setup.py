@@ -10,9 +10,11 @@ setup(
                                     "svision_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax"],
+    extras_require={"torch": ["torch>=2.11", "numpy>=1.26"]},
     entry_points={
         "console_scripts": [
             "svision-tpu = svision_tpu.cli:main",
+            "svision-tpu-torch = svision_tpu_torch.cli:main",
         ],
     },
     package_data={"svision_tpu.io": ["native/Makefile", "native/*.cc"],

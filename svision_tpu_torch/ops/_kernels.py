@@ -2,9 +2,14 @@
 
 Each source is compiled by `nvcc` for sm_90a into its own shared library
 with a plain C interface, loaded with ctypes. The build runs at first use,
-one nvcc per source, all started together, into <repo>/build/kernels/.
-A library's file name carries a hash of its sources
-and flags, so an edited kernel is rebuilt and a stale one is never loaded.
+one nvcc per source, all started together. In a source tree (the package's
+parent holds pyproject.toml) it builds into <repo>/build/kernels/; an
+installed package builds into the per-machine cache
+~/.cache/svision-tpu/kernels/, the JAX package's cache convention, so a
+kernel is compiled once per machine and never under site-packages. A
+library's file name carries a hash of its sources and flags, so an edited
+kernel is rebuilt, a stale one is never loaded, and two versions of the
+package can share the cache.
 
 Nothing is built or loaded at import: the CPU tests import every module,
 and a machine without a GPU has neither nvcc nor a card.
@@ -22,10 +27,13 @@ from typing import Dict
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "csrc")
-_BUILD = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
-                      "kernels")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+_ROOT = os.path.dirname(_PKG)
+_BUILD = (os.path.join(_ROOT, "build", "kernels")
+          if os.path.exists(os.path.join(_ROOT, "pyproject.toml")) else
+          os.path.join(os.path.expanduser("~"), ".cache", "svision-tpu",
+                       "kernels"))
 _HEADERS = ("bulk_ring.cuh", "raster_common.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -77,7 +85,14 @@ def build() -> Dict[str, str]:
     todo = {src: p for src, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
-    os.makedirs(_BUILD, exist_ok=True)
+    try:
+        os.makedirs(_BUILD, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot create the kernel build directory "
+                           f"{_BUILD}: {e}") from e
+    if not os.access(_BUILD, os.W_OK):
+        raise RuntimeError(f"the kernel build directory {_BUILD} cannot be "
+                           "written")
     nvcc = _nvcc()
     procs = {}
     for src, path in todo.items():
