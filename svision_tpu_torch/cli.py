@@ -3,9 +3,10 @@
 Counterpart of the JAX package's cli.py: the same flags and the same
 pipeline, with the PyTorch engine (infer/engine.py) in place of the JAX one.
 Port-specific: --device {cuda,cpu} (cuda by default; a run never falls back
-to the CPU unless asked), --profile writes a torch.profiler trace, and
---jax-cache is accepted and ignored. A --mesh of N devices runs the engine
-data-parallel over N GPUs (N CPU replicas with --device cpu);
+to the CPU unless asked), --profile writes a torch.profiler trace and the
+program's own spans (trace.py), and --jax-cache is accepted and ignored. A
+--mesh of N devices runs the engine data-parallel over N GPUs (N CPU
+replicas with --device cpu);
 --num_shards/--shard_id/--merge_shards and --coordinator run the genome
 sharded across processes (parallel/dist.py, over torch.distributed's gloo
 backend). torch stays out of this module's top level so that the spawn
@@ -105,7 +106,8 @@ def parse_arguments(arguments=None) -> Options:
                      "recomputes everything, SVision:370-372)")
     opt.add_argument("--profile", dest="profile_dir", type=str, default=None,
                      help="Write a torch.profiler trace of the prediction "
-                     "stage to this directory")
+                     "stage to this directory (trace.json), and the "
+                     "program's own spans of it beside (spans.json)")
     opt.add_argument("--jax-cache", dest="jax_cache", type=str, default=None,
                      help="Accepted for command-line compatibility with "
                      "svision-tpu and ignored")
@@ -476,7 +478,7 @@ def run_pipeline(options: Options, engine=None) -> str:
         warmup_thread = None
     profile_ctx = contextlib.nullcontext()
     if options.profile_dir:
-        profile_ctx = _torch_profile(options.profile_dir)
+        profile_ctx = _torch_profile(options.profile_dir, engine.devices)
 
     # Producer/consumer pipeline (SURVEY.md §2.3 "PP"): window collection for
     # chromosome k+1.. proceeds in the process pool while chromosome k's
@@ -583,7 +585,6 @@ def run_pipeline(options: Options, engine=None) -> str:
     metrics.count("signatures", sum(r.n_signatures for r in results))
     metrics.count("clusters", sum(r.n_clusters for r in results))
     metrics.count("candidates", sum(len(r.candidates) for r in results))
-    metrics.count("images_per_s", metrics.rate("images", "predict"))
     logging.info("%s", metrics.summary())
 
     all_scores = cal_scores_max_min(predict_results_dir)
@@ -607,18 +608,24 @@ def run_pipeline(options: Options, engine=None) -> str:
 
 
 @contextlib.contextmanager
-def _torch_profile(out_dir: str):
+def _torch_profile(out_dir: str, devices):
     """torch.profiler trace (CPU + CUDA activity) of the prediction stage,
-    written to out_dir as a Chrome trace."""
+    written to out_dir as a Chrome trace (trace.json), and the program's
+    own spans of the same stage on the host and on `devices` (trace.py),
+    written beside it as spans.json in the same format."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from svision_tpu_torch import trace
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, \
+            trace.recording(devices) as rec:
         yield prof
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    rec.write_chrome(os.path.join(out_dir, "spans.json"))
 
 
 def main(argv=None):

@@ -15,7 +15,8 @@ Python when it enqueues its kernel. A capture ticks it though nothing
 runs, and a replay runs the kernels without a tick. capture() takes back
 a capture's ticks and keeps how many launches of each wrapper the graph
 holds, and Graph.replay() adds them, so every counter keeps meaning
-"kernels executed".
+"kernels executed". The engine reads them per call (its span engine.call,
+trace.py).
 
 Captures use capture_error_mode="thread_local": the engine's warm-up
 captures on a thread (warmup_async) while the caller's thread goes on, and
@@ -35,6 +36,7 @@ from typing import Callable, Dict, Hashable, Sequence, Tuple
 
 import torch
 
+from svision_tpu_torch import trace
 from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
 
 # eager steps a trainer runs before it captures its step (Pieces)
@@ -73,7 +75,9 @@ def capture(fn: Callable, device: torch.device, *, stream=None, pool=None,
     graph (static buffers the caller fills before each replay). Random draws
     from `generators` (on device) advance at every replay. pool: a memory
     pool shared with graphs captured before (torch.cuda.graph_pool_handle),
-    which must then replay in the order they were captured."""
+    which must then replay in the order they were captured. Counted as
+    graphs.captures while trace.py records."""
+    trace.count("graphs.captures")
     wrappers = kernel_wrappers()
     before = [w.launches for w in wrappers]
     graph = torch.cuda.CUDAGraph()
@@ -116,6 +120,13 @@ class StepGraph:
         self.fn, self.reset, self.device = fn, reset, device
         self.generator = generator
         self.pieces = Pieces(graphed=True)
+
+    @property
+    def phase(self) -> str:
+        """What the next call does: 'eager', 'capture' or 'replay'."""
+        steps = self.pieces.steps
+        return ("eager" if steps < WARMUP_STEPS else
+                "capture" if steps == WARMUP_STEPS else "replay")
 
     def __call__(self):
         if not self.pieces.replaying:

@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from svision_tpu_torch import graphs
+from svision_tpu_torch import graphs, trace
 from svision_tpu_torch.device import resolve_device
 from svision_tpu_torch.models.alexnet import (AlexNet, cast_params_bf16,
                                               fold_conv1_params,
@@ -279,14 +279,16 @@ class InferenceEngine:
         if key not in self._graphs:
             dev = self.devices[d]
             rows = batches * (self.batch_size // len(self.devices))
-            inputs = (torch.zeros((rows, rasterize.SEGS, 4), dtype=torch.int32,
-                                  device=dev),
-                      torch.zeros((rows, rasterize.SEGS), dtype=torch.bool,
-                                  device=dev),
-                      torch.zeros((rows, rasterize.SEGS), dtype=torch.bool,
-                                  device=dev))
-            self._graphs[key] = (inputs, graphs.capture(
-                lambda: self._run(d, *inputs), dev))
+            with trace.span("engine.capture") as sp:
+                sp.set(card=d, batches=batches)
+                inputs = (torch.zeros((rows, rasterize.SEGS, 4),
+                                      dtype=torch.int32, device=dev),
+                          torch.zeros((rows, rasterize.SEGS),
+                                      dtype=torch.bool, device=dev),
+                          torch.zeros((rows, rasterize.SEGS),
+                                      dtype=torch.bool, device=dev))
+                self._graphs[key] = (inputs, graphs.capture(
+                    lambda: self._run(d, *inputs), dev))
         return self._graphs[key]
 
     @torch.inference_mode()
@@ -315,16 +317,37 @@ class InferenceEngine:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """specs through plan(N): replays of each replica's graphs when
         graphed, else the eager step. Each dispatch's endpoints are made on
-        the host while the device runs the one before."""
+        the host while the device runs the one before. Traced as the span
+        engine.call (trace.py), with the rows, the padded rows, the
+        dispatches and each kernel wrapper's launches during the call."""
         n = specs.shape[0]
         if n == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
-        chunks, singles = self.plan(n)
-        sizes = chunks + [1] * singles
+        with trace.span("engine.call") as call:
+            wrappers = graphs.kernel_wrappers()
+            before = [w.launches for w in wrappers]
+            chunks, singles = self.plan(n)
+            sizes = chunks + [1] * singles
+            out = self._dispatch(specs, sizes, graphed)
+            if call:
+                total = sum(sizes) * self.batch_size
+                call.set(rows=n, padded_rows=total, dispatches=len(sizes),
+                         graphed=graphed, launches={
+                             w.__name__: w.launches - b
+                             for w, b in zip(wrappers, before)})
+        return out
+
+    def _dispatch(self, specs: np.ndarray, sizes: List[int], graphed: bool
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """_predict's work: the specs padded to sum(sizes) batches, one
+        dispatch of c batches per c in sizes, then the results gathered
+        back in the specs' order."""
+        n = specs.shape[0]
         bs, nd, total = self.batch_size, len(self.devices), sum(sizes)
         sub = bs // nd                       # each device's rows of a batch
-        specs = np.concatenate(
-            [specs, np.repeat(self._SENTINEL, total * bs - n, 0)], 0)
+        with trace.span("engine.pad"):
+            specs = np.concatenate(
+                [specs, np.repeat(self._SENTINEL, total * bs - n, 0)], 0)
         with (exact_f32() if not self.bf16 else contextlib.nullcontext()):
             # device d holds rows [i + d*sub, i + (d+1)*sub) of each batch i
             outs = [(torch.empty(total * sub, dtype=torch.int64, device=dev),
@@ -332,23 +355,31 @@ class InferenceEngine:
                     for dev in self.devices]
             b = 0
             for c in sizes:
-                host = self._host_rows(specs[b * bs:(b + c) * bs], c)
+                with trace.span("engine.host_rows") as sp:
+                    host = self._host_rows(specs[b * bs:(b + c) * bs], c)
+                    sp.set(rows=c * bs)
                 rows = slice(b * sub, (b + c) * sub)
                 for d, dev in enumerate(self.devices):
-                    if graphed:
-                        inputs, graph = self._graph(d, c)
-                        for buf, x in zip(inputs, host):
-                            buf.copy_(x[d], non_blocking=True)
-                        p, s = graph.replay()
-                    else:
-                        p, s = self._run(d, *(x[d].to(dev, non_blocking=True)
-                                              for x in host))
-                    outs[d][0][rows].copy_(p)
-                    outs[d][1][rows].copy_(s)
+                    with trace.span("engine.dispatch") as sp, \
+                            trace.device_span("engine.dispatch", dev):
+                        sp.set(card=d, batches=c)
+                        if graphed:
+                            inputs, graph = self._graph(d, c)
+                            for buf, x in zip(inputs, host):
+                                buf.copy_(x[d], non_blocking=True)
+                            p, s = graph.replay()
+                        else:
+                            p, s = self._run(d, *(x[d].to(dev,
+                                                          non_blocking=True)
+                                                  for x in host))
+                        outs[d][0][rows].copy_(p)
+                        outs[d][1][rows].copy_(s)
                 b += c
             # the call's one synchronization per device
-            outs = [(p.cpu(), s.cpu()) for p, s in outs]
+            with trace.span("engine.sync"):
+                outs = [(p.cpu(), s.cpu()) for p, s in outs]
         # [device, batch, row] -> [batch, device, row]: the specs' order
-        preds, softs = (torch.stack(o).reshape(nd, -1, sub).transpose(0, 1)
-                        .reshape(-1) for o in zip(*outs))
-        return preds.numpy()[:n], softs.numpy()[:n]
+        with trace.span("engine.unshard"):
+            preds, softs = (torch.stack(o).reshape(nd, -1, sub)
+                            .transpose(0, 1).reshape(-1) for o in zip(*outs))
+            return preds.numpy()[:n], softs.numpy()[:n]

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from svision_tpu_torch import graphs
+from svision_tpu_torch import graphs, trace
 from svision_tpu_torch.device import resolve_device
 from svision_tpu_torch.infer.engine import exact_f32
 from svision_tpu_torch.models import alexnet
@@ -734,7 +734,9 @@ def make_device_step(model: AlexNet, ep_d, vis_d, rev_d, labels_d,
 
     On the card, unless eager, one CUDA graph holds the whole step after
     its first graphs.WARMUP_STEPS eager steps: the host copies idx and flip
-    into static buffers and replays."""
+    into static buffers and replays. Each step is traced (trace.py) as the
+    span train.step, its phase 'eager', 'capture' or 'replay', with a
+    device span of the same name around its work on the card."""
     dev = ep_d.device
     opt, train, reset = _sgd_step(model, learning_rate, 1.0, keep_prob,
                                   compute_dtype, s2d)
@@ -773,9 +775,14 @@ def make_device_step(model: AlexNet, ep_d, vis_d, rev_d, labels_d,
         run = graphs.StepGraph(body, reset, dev, generator)
 
     def step(idx, flip):
-        idx_s.copy_(idx)
-        flip_s.copy_(flip)
-        return run().clone()
+        with trace.span("train.step") as sp, \
+                trace.device_span("train.step", dev):
+            if sp:
+                sp.set(phase=run.phase if isinstance(run, graphs.StepGraph)
+                       else "eager")
+            idx_s.copy_(idx)
+            flip_s.copy_(flip)
+            return run().clone()
 
     return opt, step
 
