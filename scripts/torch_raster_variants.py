@@ -15,16 +15,24 @@ Counterpart of scripts/raster_variants.py. With seed-0 weights
 2. int8 layers. At each batch, every layer of the int8 network on
    activations of its real shape: the activation quantizer, the im2col
    copies, the torch._int_mm GEMMs, and the whole layer (quantize, im2col,
-   GEMMs, dequantize to bf16), against the bf16 layer it replaces: cuDNN's
-   F.conv2d (channels_last, grouped where AlexNet is) or F.linear, as
-   AlexNet runs it.
-3. Grouped convolutions. The bf16 s2d engine with conv2, conv4 and conv5
-   run as two ungrouped convolutions each (AlexNet._conv patched in this
-   script only) against the grouped engine, in turns (grouped, split,
-   split, grouped, --reps calls each), the two outputs' argmax agreement,
-   and one profiled call of each (chip_smoke.profile_engine): the device
-   time per batch by kernel, which shows whether cuDNN's layout kernels
-   around the grouped convolutions go.
+   GEMMs, dequantize to bf16), against the bf16 layer it replaces as
+   AlexNet runs it: cuDNN's F.conv2d (channels_last), conv2, conv4 and
+   conv5 as two ungrouped convolutions (conv_halves; the input halves
+   made before the timing), or F.linear.
+3. Grouped convolutions. The bf16 s2d engine, whose conv2, conv4 and
+   conv5 run as two ungrouped convolutions each, against the same engine
+   with one grouped cuDNN call a grouped layer (grouped_convs, in this
+   script only), in turns (grouped, split, split, grouped, --reps calls
+   each), the two outputs' argmax agreement, and one profiled call of each
+   (chip_smoke.profile_engine): the device time per batch by kernel,
+   which shows the layout kernels cuDNN puts around its grouped calls.
+4. Stages. At batch 128, the device time of each stage of the bf16 s2d
+   step, split and grouped: each prefix of K3 and AlexNet.stages()
+   captured as a CUDA graph (timing.graph_ms), a stage's time the
+   difference of two prefixes; and conv3 with conv4 in the two forms the
+   split route can give conv3: one whole convolution whose output conv4
+   reads in two slices (the shipped form), or two convolutions on halves
+   of its output channels.
 
 It prints one JSON line per measurement and the card's name and power
 limit; --out writes everything as one JSON file.
@@ -130,6 +138,8 @@ def int8_layers(smoke, params, rows: list) -> None:
                 return q8._dequant(name, y, a_scale)
             layer = getattr(bf, name)
             x_bf = h.permute(0, 3, 1, 2)               # channels_last NCHW
+            xs = [x.contiguous(memory_format=torch.channels_last)
+                  for x in x_bf.chunk(groups, dim=1)]
             emit(rows, dict(
                 part="int8_layer", batch=bs, layer=name, groups=groups,
                 gemm_shape=[flat[0].shape[0], flat[0].shape[1],
@@ -142,8 +152,9 @@ def int8_layers(smoke, params, rows: list) -> None:
                 int8_layer_ms=smoke.time_ms(whole),
                 # as AlexNet runs it: K2 adds conv1's and conv2's bias
                 bf16_cudnn_ms=smoke.time_ms(
-                    lambda: bf._conv(layer, x_bf,
-                                     bias=name not in ("conv1", "conv2")))))
+                    lambda: bf._convs(layer, xs, bias=name != "conv2")
+                    if groups == 2 else
+                    bf._conv(layer, x_bf, bias=name != "conv1"))))
         for name, n_in in (("fc6", 9216), ("fc7", 4096)):
             h = (torch.rand((bs, n_in), generator=gen, device=dev)
                  * 8).to(torch.bfloat16)
@@ -163,50 +174,36 @@ def int8_layers(smoke, params, rows: list) -> None:
 
 
 @contextlib.contextmanager
-def split_groups():
-    """AlexNet's grouped convolutions as one ungrouped convolution per
-    group, the outputs concatenated on the channel axis (channels_last
-    stays channels_last)."""
-    import torch
-    import torch.nn.functional as F
+def grouped_convs():
+    """Networks built and captured inside run every grouped layer as one
+    grouped cuDNN call, in bf16 too: AlexNet.split_groups reads 0 here, as
+    the f32 network's does (the split route's reference)."""
     from svision_tpu_torch.models.alexnet import AlexNet
-    real = AlexNet.__dict__["_conv"]             # the staticmethod
-
-    def split(layer, h, bias=True):
-        g = layer.groups
-        if g == 1:
-            return real.__func__(layer, h, bias)
-        cin, cout = h.shape[1] // g, layer.weight.shape[0] // g
-        return torch.cat(
-            [F.conv2d(h[:, i * cin:(i + 1) * cin],
-                      layer.weight[i * cout:(i + 1) * cout],
-                      layer.bias[i * cout:(i + 1) * cout] if bias else None,
-                      layer.stride, layer.padding)
-             for i in range(g)], dim=1)
-    AlexNet._conv = staticmethod(split)
+    real = AlexNet.__dict__["split_groups"]      # the property
+    AlexNet.split_groups = property(lambda self: 0)
     try:
         yield
     finally:
-        AlexNet._conv = real
+        AlexNet.split_groups = real
 
 
 def grouped_vs_split(smoke, params, reps: int, rows: list) -> None:
     import numpy as np
     from svision_tpu_torch.infer.engine import InferenceEngine
     specs = smoke.random_specs(128 * CALL_BATCHES, seed=0)
-    eng = InferenceEngine(params, device=DEVICE)
-    eng.warmup()
-    with split_groups():
-        split = InferenceEngine(params, device=DEVICE)
-        split.warmup()
+    split = InferenceEngine(params, device=DEVICE)
+    split.warmup()
+    with grouped_convs():
+        eng = InferenceEngine(params, device=DEVICE)
+        eng.warmup()
     want, got = eng.predict_specs(specs), split.predict_specs(specs)
     rates = {"grouped": [], "split": []}
     for name in ("grouped", "split", "split", "grouped"):
         e = eng if name == "grouped" else split
         rates[name].append(smoke.best_rate(e, specs, reps))
     profiles = {}
-    for name, ctx in (("grouped", contextlib.nullcontext()),
-                      ("split", split_groups())):
+    for name, ctx in (("grouped", grouped_convs()),
+                      ("split", contextlib.nullcontext())):
         with ctx:
             profiles[name] = smoke.profile_engine(params, modes=[(name, {})],
                                                   eager=False)[name]
@@ -215,6 +212,42 @@ def grouped_vs_split(smoke, params, reps: int, rows: list) -> None:
                     bit_equal=bool(np.array_equal(want[0], got[0])
                                    and np.array_equal(want[1], got[1])),
                     profiles=profiles))
+
+
+def split_stages(smoke, params, rows: list) -> None:
+    import torch
+    import torch.nn.functional as F
+    from svision_tpu_torch import timing
+    from svision_tpu_torch.models.alexnet import AlexNet, fold_params_bf16
+    from svision_tpu_torch.ops import rasterize
+    from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
+    dev = torch.device(DEVICE)
+    ep, vis, rev = (torch.from_numpy(a).to(dev) for a in
+                    rasterize.specs_to_endpoints(smoke.random_specs(128, 1)))
+    model = AlexNet.from_params(fold_params_bf16(params), s2d=True,
+                                device=dev)
+    w = model.conv1_weight_hwio()
+    for route, ctx in (("split", contextlib.nullcontext()),
+                       ("grouped", grouped_convs())):
+        with ctx, torch.inference_mode():
+            prefix = [timing.graph_ms(
+                lambda k=k: model.forward_conv1(
+                    conv1_fused_raster(ep, vis, rev, w), k), dev)
+                for k in range(len(model.stages()) + 1)]
+        emit(rows, dict(part="stages", batch=128, route=route,
+                        prefix_ms=prefix, stage_ms={
+                            "+".join(layers): b - a for layers, a, b in zip(
+                                AlexNet.STAGE_LAYERS, prefix, prefix[1:])}))
+    with torch.inference_mode():
+        h = model.forward_conv1(conv1_fused_raster(ep, vis, rev, w), 2)
+        w3, b3 = model.conv3.weight.chunk(2), model.conv3.bias.chunk(2)
+        forms = {
+            "conv3_whole_sliced": lambda: model._conv4(model._conv3(h)),
+            "conv3_halves": lambda: model._conv4(tuple(
+                torch.relu(F.conv2d(h, wi, bi, 1, 1))
+                for wi, bi in zip(w3, b3)))}
+        emit(rows, dict(part="conv3_forms", batch=128, conv3_conv4_ms={
+            name: timing.graph_ms(fn, dev) for name, fn in forms.items()}))
 
 
 def main(argv=None) -> int:
@@ -238,6 +271,7 @@ def main(argv=None) -> int:
     engines(smoke, params, args.reps, rows)
     int8_layers(smoke, params, rows)
     grouped_vs_split(smoke, params, args.reps, rows)
+    split_stages(smoke, params, rows)
     result = dict(device=smi, rows=rows)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -319,7 +319,9 @@ class InferenceEngine:
         graphed, else the eager step. Each dispatch's endpoints are made on
         the host while the device runs the one before. Traced as the span
         engine.call (trace.py), with the rows, the padded rows, the
-        dispatches and each kernel wrapper's launches during the call."""
+        dispatches, the grouped layers the network runs split
+        (AlexNet.split_groups) and each kernel wrapper's launches during
+        the call."""
         n = specs.shape[0]
         if n == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
@@ -332,7 +334,9 @@ class InferenceEngine:
             if call:
                 total = sum(sizes) * self.batch_size
                 call.set(rows=n, padded_rows=total, dispatches=len(sizes),
-                         graphed=graphed, launches={
+                         graphed=graphed,
+                         split_groups=self._replicas[0][0].split_groups,
+                         launches={
                              w.__name__: w.launches - b
                              for w, b in zip(wrappers, before)})
         return out

@@ -20,13 +20,22 @@ Precision follows the weights' dtype: f32 weights give the exact path,
 bf16 weights (fold_params_bf16) the fast path with bf16 activations
 between layers. Logits are f32 either way.
 
+In bf16 the grouped layers run split (AlexNet.split_groups): each as two
+ungrouped convolutions, one per group (conv_halves), since cuDNN's grouped
+NHWC bf16 call slices its groups out and copies them back on every call.
+From conv3 to conv5 the activations then travel as two channel halves,
+joined only where an op needs every channel: conv2's output, for the LRN
+window that crosses the group boundary, and conv5's pooled output, for
+fc6. In f32 every layer makes its own grouped call, bit for bit the exact
+route's.
+
 Class ids: 0=DEL 1=INS 2=INV 3=DUP 4=tDUP (predict.py:133-142).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +63,11 @@ _FC_SPECS = (
     ("fc7", 4096, 4096),
     ("fc8", 4096, NUM_CLASSES),
 )
+# the layers that run in two groups: conv2, conv4, conv5
+_GROUPED = tuple(spec[0] for spec in _CONV_SPECS if spec[6] > 1)
 
 __all__ = ["AlexNet", "IMAGE_MEAN", "NUM_CLASSES", "cast_params_bf16",
-           "fold_conv1_math", "image_mean",
+           "conv_halves", "fold_conv1_math", "image_mean",
            "fold_conv1_params", "fold_params_bf16", "init_params", "lrn",
            "params_from_numpy", "params_to_numpy", "space_to_depth"]
 
@@ -224,6 +235,23 @@ def params_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # The network
 # ---------------------------------------------------------------------------
 
+def conv_halves(layer: nn.Conv2d, xs, bias: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer of two groups as two ungrouped convolutions, one a group,
+    on views of its weights and bias (no copies): group i reads xs[i], its
+    half of the input channels, and gives its half of the output channels,
+    channels_last when its input is."""
+    ws = layer.weight.chunk(2)
+    bs = layer.bias.chunk(2) if bias else (None, None)
+    return tuple(F.conv2d(x, w, b, layer.stride, layer.padding)
+                 for x, w, b in zip(xs, ws, bs))
+
+
+def _join(hs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """Channel blocks NCHW -> one tensor; one block is returned as is."""
+    return hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+
+
 class AlexNet(nn.Module):
     """AlexNet over NHWC inputs. s2d=True makes conv1 the folded 3x3
     stride-1 conv over the [N,57,57,48] space-to-depth raster
@@ -281,6 +309,13 @@ class AlexNet(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return self.conv2.weight.dtype
 
+    @property
+    def split_groups(self) -> int:
+        """How many grouped layers run split, one ungrouped convolution a
+        group (conv_halves): all three in bf16, none in f32, whose grouped
+        calls keep the exact route's bits."""
+        return len(_GROUPED) if self.compute_dtype == torch.bfloat16 else 0
+
     def conv1_weight_hwio(self) -> torch.Tensor:
         """conv1's weights in the JAX layout [kh,kw,in,out], contiguous."""
         return self.conv1.weight.permute(2, 3, 1, 0).contiguous()
@@ -313,12 +348,13 @@ class AlexNet(nn.Module):
 
     def stages(self):
         """forward_conv1's stages, one per STAGE_LAYERS entry, in order:
-        each takes the previous stage's output."""
+        each takes the previous stage's output. conv3 and conv4 hand on
+        their output as a tuple of channel blocks NCHW (_blocks)."""
         return (self._conv1_block, self._conv2_block, self._conv3,
                 self._conv4, self._conv5_pool, self._head)
 
     def forward_conv1(self, pre: torch.Tensor,
-                      n_stages: Optional[int] = None) -> torch.Tensor:
+                      n_stages: Optional[int] = None):
         """Logits from conv1's pre-activation, NHWC [N,55,55,96] (what the
         fused raster+conv1 kernel emits): the rest of the network; or,
         given n_stages, the output of its first n_stages stages."""
@@ -327,22 +363,41 @@ class AlexNet(nn.Module):
             h = stage(h)
         return h
 
+    def _blocks(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """x NCHW as the channel blocks a grouped layer reads: its two
+        group halves (views) when the groups run split, else x whole."""
+        return x.chunk(2 if self.split_groups else 1, dim=1)
+
+    def _convs(self, layer: nn.Conv2d, xs, bias: bool = True
+               ) -> Tuple[torch.Tensor, ...]:
+        """A grouped layer over its input's channel blocks xs -> its
+        output's: the two halves of conv_halves when the groups run split,
+        else the one block of the layer's grouped call."""
+        if self.split_groups:
+            return conv_halves(layer, xs, bias)
+        return (self._conv(layer, xs[0], bias),)
+
     def _conv1_block(self, pre):
         return bias_relu_pool_lrn(pre, self.conv1.bias)         # [N,27,27,96]
 
     def _conv2_block(self, h):
-        h = self._conv(self.conv2, h.permute(0, 3, 1, 2), bias=False)
+        xs = self._blocks(h.permute(0, 3, 1, 2))
+        # joined: K2's LRN window crosses the group boundary
+        h = _join(self._convs(self.conv2, xs, bias=False))
         h = bias_relu_pool_lrn(h.permute(0, 2, 3, 1), self.conv2.bias)
         return h.permute(0, 3, 1, 2)                            # [N,256,13,13]
 
     def _conv3(self, h):
-        return torch.relu(self._conv(self.conv3, h))
+        # one convolution, then conv4's halves as views: faster than two
+        # convolutions on halves of the output channels (PERF.md)
+        return self._blocks(torch.relu(self._conv(self.conv3, h)))
 
-    def _conv4(self, h):
-        return torch.relu(self._conv(self.conv4, h))
+    def _conv4(self, hs):
+        return tuple(torch.relu(y) for y in self._convs(self.conv4, hs))
 
-    def _conv5_pool(self, h):
-        return F.max_pool2d(torch.relu(self._conv(self.conv5, h)), 3, 2)
+    def _conv5_pool(self, hs):
+        return _join(tuple(F.max_pool2d(torch.relu(y), 3, 2)     # [N,256,6,6]
+                           for y in self._convs(self.conv5, hs)))
 
     def _head(self, h):
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)       # NHWC flatten

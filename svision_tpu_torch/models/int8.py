@@ -109,6 +109,9 @@ class AlexNetInt8(nn.Module):
     fc8's bf16 weights, on one device. Built by from_params from
     quantize_params_int8's output."""
 
+    # grouped layers run as one GEMM a group (AlexNet.split_groups)
+    split_groups = sum(spec[6] > 1 for spec in _CONV_SPECS)
+
     def __init__(self, q: Mapping[str, np.ndarray]):
         super().__init__()
         self.convs = []       # (name, kernel, pad, groups)

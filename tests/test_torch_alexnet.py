@@ -7,9 +7,11 @@ import jax.numpy as jnp
 import ml_dtypes
 import pytest
 import torch
+import torch.nn.functional as F
 
 from svision_tpu.models import alexnet as ja
 from svision_tpu_torch.models import alexnet as ta
+from svision_tpu_torch.ops.fused_pool_lrn import bias_relu_pool_lrn
 
 torch.set_num_threads(2)
 
@@ -116,3 +118,127 @@ def test_lrn_matches_jax():
     want = np.asarray(ja.lrn(jnp.asarray(x)))
     got = ta.lrn(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The grouped layers run split in bf16 (AlexNet.split_groups, conv_halves)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nets():
+    """The unfolded network from one set of seeded weights, in f32 and in
+    bf16 (cast_params_bf16), on the CPU."""
+    params = ta.init_params(3)
+    return {torch.float32: ta.AlexNet.from_params(params, device="cpu"),
+            torch.bfloat16: ta.AlexNet.from_params(
+                ta.cast_params_bf16(params), device="cpu")}
+
+
+def _grouped_forward_conv1(model, pre):
+    """forward_conv1 as the network ran it with every grouped layer in one
+    grouped F.conv2d call: the reference of the split route."""
+    def conv(layer, h, bias=True):
+        return F.conv2d(h, layer.weight, layer.bias if bias else None,
+                        layer.stride, layer.padding, 1, layer.groups)
+    h = bias_relu_pool_lrn(pre, model.conv1.bias)
+    h = conv(model.conv2, h.permute(0, 3, 1, 2), bias=False)
+    h = bias_relu_pool_lrn(h.permute(0, 2, 3, 1), model.conv2.bias)
+    h = h.permute(0, 3, 1, 2)
+    h = torch.relu(conv(model.conv3, h))
+    h = torch.relu(conv(model.conv4, h))
+    h = F.max_pool2d(torch.relu(conv(model.conv5, h)), 3, 2)
+    return model._head(h)
+
+
+def _pre(n, dtype, seed=0):
+    """conv1's pre-activation NHWC [n,55,55,96], as K3 emits it."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((n, 55, 55, 96), generator=g).mul(4).to(dtype)
+
+
+def test_split_groups_follows_the_compute_dtype(nets):
+    assert nets[torch.bfloat16].split_groups == 3
+    assert nets[torch.float32].split_groups == 0
+
+
+# layer -> (input channels, side) at the network's real shapes
+_GROUPED_INPUTS = {"conv2": (96, 27), "conv4": (384, 13), "conv5": (384, 13)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(_GROUPED_INPUTS))
+def test_conv_halves_equal_the_grouped_call(nets, name, dtype):
+    """conv_halves on a grouped layer's two input halves, joined, against
+    the layer's grouped F.conv2d on the whole input (conv2 without its
+    bias, as the network calls it): within 1e-5 of the largest output in
+    f32; in bf16, where each output is rounded to bf16 from an f32 sum of
+    the same terms in another order, within one bf16 step (2^-7 of the
+    value) plus 2^-14 of the largest output for the sums' order."""
+    layer = getattr(nets[dtype], name)
+    c, side = _GROUPED_INPUTS[name]
+    g = torch.Generator().manual_seed(c + side)
+    x = (torch.rand((2, c, side, side), generator=g).to(dtype)
+         .contiguous(memory_format=torch.channels_last))
+    bias = name != "conv2"
+    want = F.conv2d(x, layer.weight, layer.bias if bias else None,
+                    layer.stride, layer.padding, 1, 2).float()
+    halves = ta.conv_halves(layer, x.chunk(2, dim=1), bias=bias)
+    assert [tuple(h.shape) for h in halves] == [
+        (2, layer.out_channels // 2, side, side)] * 2
+    got = torch.cat(halves, dim=1).float()
+    scale = want.abs().max()
+    if dtype == torch.float32:
+        assert (got - want).abs().max() <= 1e-5 * scale
+    else:
+        assert ((got - want).abs()
+                <= 2 ** -7 * want.abs() + 2 ** -14 * scale).all()
+
+
+def test_f32_network_is_the_grouped_call(nets):
+    """The f32 network keeps one grouped call a grouped layer: its logits
+    are bit-equal to the grouped reference's, so the exact route is the
+    one it was."""
+    model = nets[torch.float32]
+    pre = _pre(2, torch.float32)
+    assert torch.equal(model.forward_conv1(pre),
+                       _grouped_forward_conv1(model, pre))
+
+
+def test_bf16_split_network_agrees_with_the_grouped_call(nets):
+    """The bf16 network with its groups split against the same weights'
+    grouped bf16 calls: the same sums in another order, so logits within
+    bf16 rounding of each other and the same argmax."""
+    model = nets[torch.bfloat16]
+    pre = _pre(4, torch.bfloat16, seed=1)
+    got, want = model.forward_conv1(pre), _grouped_forward_conv1(model, pre)
+    assert got.dtype == want.dtype == torch.float32
+    assert (got - want).abs().max() <= 2 ** -6 * want.abs().max()
+    assert torch.equal(got.argmax(1), want.argmax(1))
+
+
+# forward_conv1(n_stages=k)'s output shapes [N=2]; conv3 and conv4 hand on
+# a tuple of channel blocks (two halves in bf16, one block in f32)
+_STAGE_SHAPES = {0: (2, 55, 55, 96), 1: (2, 27, 27, 96), 2: (2, 256, 13, 13),
+                 5: (2, 256, 6, 6), 6: (2, 5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", range(len(ta.AlexNet.STAGE_LAYERS) + 1))
+def test_forward_conv1_runs_every_prefix(nets, k, dtype):
+    """forward_conv1(n_stages=k) for every k, as scripts/torch_roofline.py
+    times the prefixes: each runs and gives its stage's output, and the
+    stages taken one by one from it reach the whole network's logits."""
+    model = nets[dtype]
+    pre = _pre(2, dtype, seed=2)
+    h = model.forward_conv1(pre, n_stages=k)
+    if k in (3, 4):
+        blocks = 2 if model.split_groups else 1
+        assert isinstance(h, tuple) and len(h) == blocks
+        assert all(tuple(b.shape) == (2, 384 // blocks, 13, 13) for b in h)
+    else:
+        assert tuple(h.shape) == _STAGE_SHAPES[k]
+    for stage in model.stages()[k:]:
+        h = stage(h)
+    assert torch.equal(h, model.forward_conv1(pre))

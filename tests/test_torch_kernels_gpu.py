@@ -573,6 +573,57 @@ def test_pallas_engine_raster_is_the_plain_raster(cuda, int8, monkeypatch):
         assert np.array_equal(a, b)
 
 
+def test_bf16_engine_split_groups_against_the_grouped_network(cuda):
+    """The bf16 engine, whose conv2, conv4 and conv5 run as two ungrouped
+    convolutions each, against a grouped forward built here from the same
+    weights (one F.conv2d with groups=2 a grouped layer, after the same
+    K3 and K2) on 8,192 random specs: argmax agreement >= 0.99 and a mean
+    max-softmax gap under bf16.genome's softmax_err_mean limit, 0.019.
+    engine.call reads split_groups 3 for it and 0 for the exact engine."""
+    import torch.nn.functional as F
+    from svision_tpu_torch import trace
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from bench import random_specs
+    specs = random_specs(8192, seed=22)
+    eng = InferenceEngine(init_params(0))
+    eng.warmup()
+    with trace.recording([cuda]) as rec:
+        p, s = eng.predict_specs(specs)
+    assert [c.attrs["split_groups"] for c in rec.find("engine.call")] == [3]
+    model, w_s2d = eng._replicas[0]
+
+    def conv(layer, h, bias=True):
+        return F.conv2d(h, layer.weight, layer.bias if bias else None,
+                        layer.stride, layer.padding, 1, layer.groups)
+
+    def grouped(ep, vis, rev):
+        h = fused_pool_lrn.bias_relu_pool_lrn(
+            fused_conv1.conv1_fused_raster(ep, vis, rev, w_s2d),
+            model.conv1.bias)
+        h = conv(model.conv2, h.permute(0, 3, 1, 2), bias=False)
+        h = fused_pool_lrn.bias_relu_pool_lrn(h.permute(0, 2, 3, 1),
+                                              model.conv2.bias)
+        h = torch.relu(conv(model.conv3, h.permute(0, 3, 1, 2)))
+        h = torch.relu(conv(model.conv4, h))
+        h = F.max_pool2d(torch.relu(conv(model.conv5, h)), 3, 2)
+        return model._head(h)
+    ep, vis, rev = (torch.from_numpy(a).to(cuda)
+                    for a in rasterize.specs_to_endpoints(specs))
+    with torch.inference_mode():
+        logits = torch.cat([grouped(ep[i:i + 128], vis[i:i + 128],
+                                    rev[i:i + 128])
+                            for i in range(0, len(specs), 128)])
+    soft = torch.softmax(logits.double(), dim=1).cpu().numpy()
+    agree = float((p == soft.argmax(1)).mean())
+    gap = float(np.abs(s - soft.max(1)).mean())
+    assert agree >= 0.99 and gap < 0.019, (agree, gap)
+    exact = InferenceEngine(init_params(0), bf16=False)
+    exact.warmup()
+    with trace.recording([cuda]) as rec:
+        exact.predict_specs(specs[:128])
+    assert [c.attrs["split_groups"] for c in rec.find("engine.call")] == [0]
+
+
 @pytest.mark.parametrize("s2d", [True, False])
 def test_device_step_graph_equals_eager(cuda, s2d):
     """fit_device's step (make_device_step) at keep_prob 1 without

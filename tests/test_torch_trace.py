@@ -121,8 +121,9 @@ def _engine_record(params, devices, specs):
                          ids=["one-device", "mesh-of-2"])
 def test_engine_call_spans_on_the_cpu(params, devices):
     """An 11-row call at batch 4, chunk 2: a chunk of 2 batches and a
-    single batch. engine.call holds its rows, padding, dispatches and
-    launch deltas (none on the CPU); its children are the padding, one
+    single batch. engine.call holds its rows, padding, dispatches, the
+    bf16 network's three split grouped layers and launch deltas (none on
+    the CPU); its children are the padding, one
     endpoint span a dispatch, one dispatch span a dispatch a device, the
     sync and the unshard; the outputs equal those made with recording
     off, bit for bit."""
@@ -134,7 +135,7 @@ def test_engine_call_spans_on_the_cpu(params, devices):
     (call,) = rec.find("engine.call")
     assert call.attrs == {
         "rows": 11, "padded_rows": 12, "dispatches": 2, "graphed": False,
-        "launches": {w.__name__: 0 for w in graphs.kernel_wrappers()}}
+        "split_groups": 3, "launches": {w.__name__: 0 for w in graphs.kernel_wrappers()}}
     kids = rec.children(call)
     assert [s.name for s in sorted(kids, key=lambda s: s.start_ns)] == (
         ["engine.pad", "engine.host_rows"] + ["engine.dispatch"] * nd
