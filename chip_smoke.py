@@ -15,8 +15,9 @@ Phases, each of which fails the run with a non-zero exit on any check:
      fit_device's fragmented four segments an image, and checked at
      batches of 1 and 129 and on an all-dark batch; K3 also on an all-dark
      batch, bf16 at batches of 1, 129 and 8,192, f32 at 1, 129 and 4,096
-     and on a densely lit batch, with the route K3 f32 stands for in the
-     exact step (K1's images, then conv1 through cuDNN) timed beside it;
+     and on a densely lit batch, with the route K3 f32 replaced in the
+     card's exact step (K1's images, then conv1 through cuDNN) timed
+     beside it;
      K2's backward kernel at the training batch of 64 and at 1 and 129,
      both tails, both dtypes, on random and on tie-heavy inputs, and a
      CUDA graph of it replayed against its eager call;
@@ -25,8 +26,9 @@ Phases, each of which fails the run with a non-zero exit on any check:
      batches and 8,192 specs, images/s graphed and eager, and 8,192 specs
      against an all-plain engine built and captured with its kernels
      swapped for their plain versions; the exact step's two routes (the
-     engine's, and K3 in f32 into the folded network) against the CPU
-     exact engine on those specs; then profile one call in each mode,
+     engine's, K3 in f32 into the folded network, and K1's images into
+     the unfolded one) against the CPU exact engine on those specs; then
+     profile one call in each mode,
      graphed and eager (device time by kernel, idle share);
   4. drive the CLI path (svision_tpu_torch.cli.run_pipeline) on a
      synthetic genome + BAM with seeded random weights, in the default bf16
@@ -644,8 +646,8 @@ def k3_f32_checks(params, seg, w) -> dict:
     4,096 (the striped items' ragged split over the SMs) and a densely lit
     batch (timing.diagonal_specs: 3-4x the lit terms of random specs),
     each within 1e-4 of the plain version's largest output, the dense one
-    and 4,096 timed; and the route K3 f32 stands for in the exact step,
-    timed: K1's f32 images, then conv1 11x11/4 through cuDNN as
+    and 4,096 timed; and the route K3 f32 replaced in the card's exact
+    step, timed: K1's f32 images, then conv1 11x11/4 through cuDNN as
     AlexNet.forward runs it (NCHW weights on channels_last input, with
     cuDNN's layout conversions), no bias."""
     import torch
@@ -799,45 +801,42 @@ def check_engine(params) -> dict:
 
 def exact_routes(params, specs, p, s) -> dict:
     """The exact step's two routes on the card against the CPU exact engine
-    (the JAX engine's unfolded form) on the same specs: the engine's (K1
-    and cuDNN; its outputs p, s) and the fused route (engine.fused_logits
-    on the folded f32 weights: K3 in f32), run eagerly batch by batch
-    under exact_f32(). Both must agree on every argmax; each route's
-    softmax departure from the CPU is recorded beside them (the engine
-    takes the fused route only if it holds the CPU within 1e-5: PERF.md,
-    Findings)."""
+    (the JAX engine's unfolded form) on the same specs: the engine's (the
+    fused route, K3 in f32 into the folded network; its outputs p, s) and
+    K1 and cuDNN (K1's f32 images into the unfolded f32 network), run
+    eagerly batch by batch under exact_f32(). Both must agree on every
+    argmax; each route's softmax departure from the CPU is recorded beside
+    them."""
     import torch
-    from svision_tpu_torch.infer.engine import (InferenceEngine, exact_f32,
-                                                fused_logits)
-    from svision_tpu_torch.models.alexnet import AlexNet, fold_conv1_params
+    from svision_tpu_torch.infer.engine import InferenceEngine, exact_f32
+    from svision_tpu_torch.models.alexnet import AlexNet
     from svision_tpu_torch.ops import rasterize
+    from svision_tpu_torch.ops.raster_kernel import render_images
     t0 = time.perf_counter()
     cpu = InferenceEngine(params, batch_size=B, bf16=False, device="cpu")
     cp, cs = cpu.predict_specs(specs)
     cpu_s = time.perf_counter() - t0
-    model = AlexNet.from_params(fold_conv1_params(params), s2d=True,
-                                device="cuda")
-    w = model.conv1_weight_hwio()
+    model = AlexNet.from_params(params, device="cuda")
     ep, vis, rev = (torch.from_numpy(a).cuda()
                     for a in rasterize.specs_to_endpoints(specs))
-    fp, fs = [], []
+    kp, ks = [], []
     with torch.inference_mode(), exact_f32():
         for i in range(0, specs.shape[0], B):
-            logits = fused_logits(model, w, ep[i:i + B], vis[i:i + B],
-                                  rev[i:i + B])
-            fp.append(logits.argmax(dim=1))
-            fs.append(torch.softmax(logits, dim=1).amax(dim=1))
-    fp, fs = torch.cat(fp).cpu().numpy(), torch.cat(fs).cpu().numpy()
+            logits = model(render_images(ep[i:i + B], vis[i:i + B],
+                                         rev[i:i + B], dtype=torch.float32))
+            kp.append(logits.argmax(dim=1))
+            ks.append(torch.softmax(logits, dim=1).amax(dim=1))
+    kp, ks = torch.cat(kp).cpu().numpy(), torch.cat(ks).cpu().numpy()
     out = dict(cpu_s=cpu_s, n=int(specs.shape[0]),
                engine_vs_cpu=agreement(p, s, cp, cs),
-               fused_vs_cpu=agreement(fp, fs, cp, cs),
-               fused_vs_engine=agreement(fp, fs, p, s))
-    for route in ("engine", "fused"):
-        d = np.abs((s if route == "engine" else fs) - cs)
+               k1_cudnn_vs_cpu=agreement(kp, ks, cp, cs),
+               k1_cudnn_vs_engine=agreement(kp, ks, p, s))
+    for route, soft in (("engine", s), ("k1_cudnn", ks)):
+        d = np.abs(soft - cs)
         out[f"{route}_vs_cpu"]["specs_over_1e-5"] = int((d > 1e-5).sum())
     log(f"exact routes against the CPU exact engine: {out}")
     assert out["engine_vs_cpu"]["argmax_agreement"] == 1.0, out
-    assert out["fused_vs_cpu"]["argmax_agreement"] == 1.0, out
+    assert out["k1_cudnn_vs_cpu"]["argmax_agreement"] == 1.0, out
     return out
 
 
@@ -1001,8 +1000,8 @@ def _records(path: str):
 PER_BATCH = {
     "default": {"render_raster": 0, "bias_relu_pool_lrn": 2,
                 "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
-    "exact": {"render_raster": 1, "bias_relu_pool_lrn": 2,
-              "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0},
+    "exact": {"render_raster": 0, "bias_relu_pool_lrn": 2,
+              "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
     "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
             "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
 # phase 8's modes: engine arguments, and K1's dtype where it runs

@@ -17,12 +17,14 @@ itself runs):
 
 With --exact it times the exact f32 step instead (TF32 off, exact_f32),
 by two routes, each line naming its route:
-  k1_cudnn (the engine's exact step, InferenceEngine(bf16=False)):
+  k1_cudnn (the CPU exact engine's form, the unfolded network, here on
+            the card):
     raster          K1's f32 images (render_images)
     +conv1          conv1 11x11/4 through cuDNN, NCHW weights on
                     channels_last input, as AlexNet.forward runs it
     +conv1blk ...   then the stages above, to the whole step
-  k3 (the fused route, engine.fused_logits on the folded f32 weights):
+  k3 (the fused route, engine.fused_logits on the folded f32 weights:
+      the exact engine's step on the card):
     conv1 (K3)      K3 in f32, from the endpoints
     +conv1blk ...   then the same stages.
 

@@ -10,7 +10,7 @@ change first in odd ones. A process builds its checkout's kernels into
 CHECKOUT/build/ and measures with this checkout's chip_smoke.py on the
 other checkout's package:
 - the InferenceEngine's images/s in bf16 (the default s2d raster, K3), in
-  bf16 with raster='pallas' (K1 in bf16) and in exact mode (K1 in f32) on
+  bf16 with raster='pallas' (K1 in bf16) and in exact mode (f32) on
   chip_smoke.random_specs(8192, seed=3), batch 128, seed-0 weights, the
   best of 3 calls after a warm-up (chip_smoke.best_rate);
 - K2's times through the checkout's own wrapper (chip_smoke.check_pool_lrn):

@@ -8,9 +8,13 @@ vectors come back to the host. The CLI runs two numeric modes:
     (ops/fused_conv1.py) reads the endpoints and the folded conv1 weights
     and writes conv1's pre-activation; the bias/ReLU/pool/LRN kernel
     (ops/fused_pool_lrn.py) follows conv1 and conv2; the rest is torch.
-  * exact f32 (bf16=False, the CLI's --exact): the raster kernel
-    (ops/raster_kernel.py) renders the images, conv1 and conv2 run through
-    F.conv2d, each followed by the bias/ReLU/pool/LRN kernel; TF32 is off.
+  * exact f32 (bf16=False, the CLI's --exact): on the card the fused
+    kernel in f32 writes conv1's pre-activation into the folded network
+    (fused_logits); on the CPU the raster kernel's plain version
+    (ops/raster_kernel.py) renders the images into the unfolded network
+    and conv1 runs through F.conv2d, the JAX package's --exact form. conv2
+    runs through F.conv2d; conv1 and conv2 are each followed by the
+    bias/ReLU/pool/LRN kernel; TF32 is off.
 
 The JAX engine's other modes are here too, with its rules:
   * raster= picks the fast path's encoder: 's2d' (the fused kernel above,
@@ -87,11 +91,11 @@ def fused_logits(model: AlexNet, w_s2d: torch.Tensor, ep: torch.Tensor,
     """Logits f32 [N,5] of the folded network (AlexNet with s2d=True)
     straight from the endpoints: the fused raster+conv1 kernel with the
     folded conv1 weights w_s2d [3,3,48,96], then forward_conv1, which adds
-    the folded bias. The fast path's step in bf16. In f32, under
-    exact_f32(), it is the exact step's fused route, which chip_smoke.py
-    and scripts/torch_roofline.py --exact measure beside the engine's
-    exact step; the engine does not take it (PERF.md, Findings). CPU
-    tensors take the kernels' plain versions."""
+    the folded bias. The fast path's step in bf16; in f32, under
+    exact_f32(), the exact engine's step on the card. The CPU's exact
+    engine keeps the unfolded network instead
+    (InferenceEngine._replicas_for). CPU tensors take the kernels' plain
+    versions."""
     return model.forward_conv1(conv1_fused_raster(ep, vis, rev, w_s2d))
 
 
@@ -160,30 +164,44 @@ class InferenceEngine:
         if self.chunk < 1 or self.tail not in ("full", "pow2"):
             raise ValueError(f"chunk {self.chunk} must be >= 1 and tail "
                              f"{self.tail!r} 'full' or 'pow2'")
+        self._replicas = self._replicas_for(params, self.device.type)
+        # (replica, batches) -> (static inputs, graphs.Graph)
+        self._graphs: Dict[Tuple[int, int], tuple] = {}
+        self._warm = False
+        # one call at a time (warmup_async); warmup() runs under it too
+        self._lock = threading.RLock()
+
+    def _replicas_for(self, params, device_type: str) -> list:
+        """One replica per device of the engine, (model, folded conv1
+        weights HWIO for the fused kernel, or None), as a device of
+        device_type ('cuda', 'cpu') runs the mode. The route is chosen here
+        alone: the fused kernel into the folded network (fused_logits) for
+        the fast path with raster 's2d', and for the exact engine on the
+        card; the exact engine on any other device keeps the unfolded
+        network on K1's images, the JAX package's --exact form."""
         host = {k: np.asarray(v) for k, v in params.items()}
+        fused = (self.raster == "s2d" if self.fast
+                 else not self.bf16 and device_type == "cuda")
         if self.int8:
             host = quantize_params_int8(fold_conv1_params(host))
         elif self.fast:
             # fold + pre-cast once on the host: half the transfer, bit-equal
             # weights (fold_params_bf16)
             host = fold_params_bf16(host)
-        elif bf16:
+        elif fused:
+            host = fold_conv1_params(host)
+        elif self.bf16:
             host = cast_params_bf16(host)
-        # one replica per device: (model, conv1 weights for the fused kernel)
-        self._replicas = []
+        replicas = []
         for dev in self.devices:
             if self.int8:
                 model = AlexNetInt8.from_params(host, device=dev)
             else:
-                model = AlexNet.from_params(host, s2d=self.fast, device=dev)
-            self._replicas.append(
-                (model, model.conv1_weight_hwio()
-                 if self.fast and self.raster == "s2d" else None))
-        # (replica, batches) -> (static inputs, graphs.Graph)
-        self._graphs: Dict[Tuple[int, int], tuple] = {}
-        self._warm = False
-        # one call at a time (warmup_async); warmup() runs under it too
-        self._lock = threading.RLock()
+                model = AlexNet.from_params(host, s2d=self.fast or fused,
+                                            device=dev)
+            replicas.append((model, model.conv1_weight_hwio()
+                             if fused else None))
+        return replicas
 
     def plan(self, n: int) -> Tuple[List[int], int]:
         """(chunk sizes, single batches): the dispatches of a call of n
@@ -242,11 +260,12 @@ class InferenceEngine:
     def _step(self, model, w_s2d, ep, vis, rev
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One batch (or one device's share of it) on the device ->
-        (argmax, max softmax)."""
-        if not self.fast:
-            logits = model(render_images(ep, vis, rev, dtype=torch.float32))
-        elif self.raster == "s2d":
+        (argmax, max softmax). A replica that keeps w_s2d (_replicas_for)
+        runs the fused route."""
+        if w_s2d is not None:
             logits = fused_logits(model, w_s2d, ep, vis, rev)
+        elif not self.fast:
+            logits = model(render_images(ep, vis, rev, dtype=torch.float32))
         else:
             if self.raster == "pallas":
                 raster = render_raster_kernel(ep, vis, rev,

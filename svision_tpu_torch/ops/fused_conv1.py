@@ -6,8 +6,8 @@ The kernel is csrc/conv1_raster.cu; its plain version is
 conv1_fused_raster_plain below (render_raster_s2d, then a 3x3 VALID conv
 with the folded weights), which a CPU tensor goes to. A CUDA tensor
 launches the kernel or raises. It is the first layer of the engine's bf16
-path: the predicate never reaches device memory. The exact engine does
-not call it (infer/engine.py:fused_logits).
+path, and of its exact path on the card (infer/engine.py:fused_logits):
+the predicate never reaches device memory.
 
 bf16 runs as a wgmma (tensor-core) implicit GEMM. f32 adds, on CUDA cores,
 the weights of the lit predicate terms only, each product of a {0,1} value

@@ -8,7 +8,11 @@ largest logit, on bench.random_specs, an all-dark batch and a densely lit
 one (timing.diagonal_specs). The logits are held as the kernels' outputs
 are, relative to their scale: on the densely lit batch two f32 networks of
 two frameworks differ by cancellation noise of about 3e-4 at logits near
-150, beyond rtol = atol = 1e-4 for the port's unfolded network too."""
+150, beyond rtol = atol = 1e-4 for the port's unfolded network too.
+
+The exact engine takes this route on the card: the replicas it builds
+there, built on the CPU, are held to the CPU exact engine at the same bars;
+on the CPU the engine keeps the unfolded network."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -19,8 +23,10 @@ from bench import random_specs
 from svision_tpu.infer import engine as je
 from svision_tpu.models import alexnet as ja
 from svision_tpu.ops import rasterize as jr
-from svision_tpu_torch.infer.engine import InferenceEngine, fused_logits
+from svision_tpu_torch.infer.engine import (InferenceEngine, exact_f32,
+                                            fused_logits)
 from svision_tpu_torch.models.alexnet import AlexNet, fold_conv1_params
+from svision_tpu_torch.ops.raster_kernel import render_images
 from svision_tpu_torch.timing import diagonal_specs
 
 torch.set_num_threads(2)
@@ -113,3 +119,40 @@ def test_exact_engine_keeps_the_unfolded_network(params):
     _, want_p, want_s = _jax_exact(params, jr.specs_to_endpoints(specs))
     np.testing.assert_array_equal(p, want_p)
     np.testing.assert_allclose(s, want_s, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["random", "all-dark", "dense"])
+def test_card_exact_replica_matches_the_cpu_exact_engine(params, case):
+    """The replicas the exact engine builds for the card
+    (InferenceEngine._replicas_for with device type 'cuda'), built here on
+    two CPU devices as --mesh builds them: each the folded f32 network
+    (s2d=True) with its conv1 weights kept for the fused kernel. The
+    engine's _step on one of them, on CPU tensors under exact_f32(),
+    against the CPU exact engine (the unfolded network): argmax equal, max
+    softmax within 1e-5, and logits within 1e-4 of the batch's largest."""
+    eng = InferenceEngine(params, batch_size=N, bf16=False,
+                          devices=("cpu", "cpu"))
+    replicas = eng._replicas_for(params, "cuda")
+    assert len(replicas) == 2
+    folded = fold_conv1_params(params)
+    for model, w_s2d in replicas:
+        assert model.s2d and model.compute_dtype == torch.float32
+        assert model.split_groups == 0
+        assert w_s2d.dtype == torch.float32
+        assert torch.equal(w_s2d, torch.from_numpy(folded["conv1/weights"]))
+        assert torch.equal(model.conv1.bias,
+                           torch.from_numpy(folded["conv1/biases"]))
+    model, w_s2d = replicas[0]
+    seg = tuple(torch.from_numpy(a) for a in _segments(case))
+    cpu_model, cpu_w = eng._replicas[0]
+    assert cpu_w is None and not cpu_model.s2d
+    with torch.inference_mode(), exact_f32():
+        p, s = eng._step(model, w_s2d, *seg)
+        logits = fused_logits(model, w_s2d, *seg)
+        want_logits = cpu_model(render_images(*seg, dtype=torch.float32))
+    want_p, want_s = eng.predict_specs(_specs(case))
+    assert torch.equal(p, logits.argmax(dim=1))
+    np.testing.assert_array_equal(p.numpy(), want_p)
+    np.testing.assert_allclose(s.numpy(), want_s, rtol=0, atol=1e-5)
+    scale = want_logits.abs().max()
+    assert (logits - want_logits).abs().max() <= 1e-4 * scale

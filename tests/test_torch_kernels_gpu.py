@@ -469,8 +469,8 @@ def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
 # launches per batch of each engine mode's step
 PER_BATCH = {True: {"render_raster": 0, "bias_relu_pool_lrn": 2,
                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
-             False: {"render_raster": 1, "bias_relu_pool_lrn": 2,
-                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
+             False: {"render_raster": 0, "bias_relu_pool_lrn": 2,
+                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1}}
 
 
 def _launches():
@@ -500,6 +500,74 @@ def test_engine_graphs_equal_eager(cuda, bf16):
         assert np.array_equal(p, ep) and np.array_equal(s, es), n
     got = {k: v - start[k] for k, v in _launches().items()}
     assert got == {k: v * batches for k, v in PER_BATCH[bf16].items()}
+
+
+def _f64_max_softmax(seg, monkeypatch):
+    """Max softmax of the unfolded network in f64 on the card, the answer
+    every f32 route rounds: the plain raster and K2's plain version (the
+    kernels take f32 and bf16 only), fc8 in f64 too."""
+    from svision_tpu_torch.models import alexnet
+    monkeypatch.setattr(alexnet, "bias_relu_pool_lrn",
+                        fused_pool_lrn.bias_relu_pool_lrn_plain)
+    model = alexnet.AlexNet.from_params(
+        {k: v.astype(np.float64) for k, v in init_params(0).items()},
+        device=seg[0].device)
+    logits = []
+    with torch.inference_mode():
+        for i in range(0, seg[0].shape[0], 512):
+            x = rasterize.render_images(*(a[i:i + 512] for a in seg),
+                                        dtype=torch.float64)
+            pre = model._conv(model.conv1, x.permute(0, 3, 1, 2), bias=False)
+            h = model.forward_conv1(pre.permute(0, 2, 3, 1), 5)
+            h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+            h = torch.relu(model.fc7(torch.relu(model.fc6(h))))
+            logits.append(model.fc8(h))
+    return torch.softmax(torch.cat(logits), dim=1).amax(dim=1).cpu().numpy()
+
+
+def test_exact_engine_runs_the_fused_route(cuda, monkeypatch):
+    """The exact engine on the card takes the fused route: its replica is
+    the folded f32 network with conv1's weights kept for K3; engine.call's
+    launches a batch are K1 0, K3 1 and K2 2, with split_groups 0; its
+    graph replays give the eager step's answers bit for bit. On 8,192
+    random specs it agrees with the CPU exact engine (the unfolded
+    network) on every argmax, and its max softmax lies within 1e-4 of the
+    f64 answer (_f64_max_softmax). The f64 answer is the bar, not the CPU's
+    f32 one: K3 sums conv1 in another order than the unfolded convolutions
+    of the CPU and of K1 + cuDNN, so their f32 roundings agree with each
+    other more closely than either does with the card's fused route,
+    though all three lie as close to the f64 answer."""
+    import os
+    from svision_tpu_torch import trace
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from bench import random_specs
+    specs = random_specs(8192, seed=23)
+    eng = InferenceEngine(init_params(0), bf16=False)
+    model, w_s2d = eng._replicas[0]
+    assert model.s2d and model.compute_dtype == torch.float32
+    assert w_s2d is not None and w_s2d.dtype == torch.float32
+    eng.warmup()
+    with trace.recording([cuda]) as rec:
+        p, s = eng.predict_specs(specs)
+    (call,) = rec.find("engine.call")
+    batches = call.attrs["padded_rows"] // eng.batch_size
+    assert call.attrs["split_groups"] == 0
+    assert call.attrs["launches"] == {k: v * batches
+                                      for k, v in PER_BATCH[False].items()}
+    with torch.inference_mode():
+        ep, es = eng._predict(specs, graphed=False)
+    assert np.array_equal(p, ep) and np.array_equal(s, es)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or threads)
+    try:
+        cp, _ = InferenceEngine(init_params(0), bf16=False,
+                                device="cpu").predict_specs(specs)
+    finally:
+        torch.set_num_threads(threads)
+    assert np.array_equal(p, cp)
+    seg = [torch.from_numpy(a).to(cuda)
+           for a in rasterize.specs_to_endpoints(specs)]
+    assert float(np.abs(s - _f64_max_softmax(seg, monkeypatch)).max()) <= 1e-4
 
 
 # the engine's other modes (engine arguments), and their launches per batch

@@ -175,7 +175,7 @@ def test_roofline_full_prefix_is_the_engine_step(capsys):
 
 
 def test_roofline_exact_prefixes_are_the_exact_steps(capsys):
-    """--exact: the k1_cudnn route's full prefix is the exact engine's
+    """--exact: the k1_cudnn route's full prefix is the CPU exact engine's
     step and the k3 route's is fused_logits on the folded f32 weights, each
     prefix of the right shape; main times both routes' sections."""
     from svision_tpu_torch.infer.engine import (InferenceEngine, exact_f32,
