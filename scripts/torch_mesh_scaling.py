@@ -1,12 +1,12 @@
 """Batch-throughput scaling curve of the PyTorch port's data-parallel
 inference over several GPUs: the engine with devices=make_mesh(d) (one
-model replica per GPU, each batch's rows split across them), at d = 1, 2,
-4, ... up to the GPUs visible.
+model replica per GPU, each taking whole batches of --batch rows), at
+d = 1, 2, 4, ... up to the GPUs visible.
 
-The port of scripts/mesh_scaling.py. Weak scaling: the global batch is
---batch per device x d. Each size runs the engine's CUDA graphs after one
-warm call, best of --reps calls on --n specs (host clock; each call ends in
-its synchronization):
+The port of scripts/mesh_scaling.py. Weak scaling: each device runs
+batches of --batch rows, so a round of the plan carries --batch x d. Each
+size runs the engine's CUDA graphs after one warm call, best of --reps
+calls on --n specs (host clock; each call ends in its synchronization):
 
     python scripts/torch_mesh_scaling.py [--batch 64] [--chunk 8]
         [--n 4096] [--reps 3] [--exact] [--device cuda|cpu]
@@ -35,8 +35,8 @@ def sizes(n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=64,
-                    help="per-device batch size (global batch scales with "
-                    "the mesh, weak-scaling style)")
+                    help="rows a batch on each device (a round scales "
+                    "with the mesh, weak-scaling style)")
     ap.add_argument("--chunk", type=int, default=8)
     ap.add_argument("--n", type=int, default=4096,
                     help="specs per measured repetition")
@@ -67,7 +67,7 @@ def main(argv=None):
     base = None
     lines = []
     for d in sizes(n_dev):
-        engine = InferenceEngine(params, batch_size=args.batch * d,
+        engine = InferenceEngine(params, batch_size=args.batch,
                                  bf16=not args.exact, chunk=args.chunk,
                                  device=args.device,
                                  devices=make_mesh(d, args.device)

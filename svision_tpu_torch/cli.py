@@ -144,14 +144,17 @@ def parse_arguments(arguments=None) -> Options:
     clu.add_argument("--cluster_max_distance", type=float, default=0.3)
 
     pre = parser.add_argument_group("Predict parameters")
-    pre.add_argument("--batch_size", type=int, default=128)
+    pre.add_argument("--batch_size", type=int, default=128,
+                     help="Rows a batch on each inference device (default: "
+                     "%(default)s)")
     pre.add_argument("--exact", dest="bf16", action="store_false", default=True,
                      help="Run the CNN in f32 (reference-faithful numerics) "
                      "instead of the default bf16 fast path")
     pre.add_argument("--mesh", type=str, default="auto",
                      help="Data-parallel inference devices: 'auto' (every "
                      "visible GPU), 'none' (one device) or a device count "
-                     "(CPU replicas with --device cpu) (default: "
+                     "(CPU replicas with --device cpu); each device takes "
+                     "whole batches of --batch_size rows (default: "
                      "%(default)s)")
 
     gt = parser.add_argument_group("Genotype parameters")

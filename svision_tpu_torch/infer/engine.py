@@ -121,13 +121,15 @@ class InferenceEngine:
     (_predict(..., graphed=False)) is the reference the graphs are held to;
     nothing selects it.
 
-    devices=(d0, d1, ...) makes the engine data-parallel, as a mesh does the
-    JAX package's: one model replica per device, each batch's rows split
-    evenly across the devices (the batch size rounds up to a multiple of
-    their count), and the rows come back in order. In int8 mode each
-    replica takes whole batches of batch_size rows instead (the engine's
-    batch_size becomes batch_size x devices): an activation's scale is the
-    max over its batch, so the output stays that of one device. Without
+    devices=(d0, d1, ...) makes the engine data-parallel: one model replica
+    per device, each taking whole batches of batch_size rows. The engine's
+    batch_size becomes batch_size x devices, so a round of the plan gives
+    device d the one-device engine's batches d, d + devices, ..., and the
+    rows come back in order. Every replica thus runs the one-device
+    engine's batch shape and the same rows in each batch: the output is
+    that of one device, bit for bit where the kernels are deterministic
+    (an int8 activation's scale, the max over its batch, included), and a
+    card keeps its kernels at the batch they are sized for. Without
     devices the engine runs on `device`.
 
     bf16, fast, raster and int8 select the numeric mode as the JAX engine's
@@ -157,8 +159,7 @@ class InferenceEngine:
         self.raster = "compare" if self.int8 and raster == "s2d" else raster
         self.compute_dtype = (torch.int8 if self.int8 else
                               torch.bfloat16 if bf16 else torch.float32)
-        self.batch_size = (batch_size * nd if self.int8
-                           else -(-batch_size // nd) * nd)   # equal shards
+        self.batch_size = batch_size * nd   # whole batches a replica
         self.chunk = CHUNK if chunk is None else int(chunk)
         self.tail = TAIL if tail is None else tail
         if self.chunk < 1 or self.tail not in ("full", "pow2"):
@@ -259,7 +260,7 @@ class InferenceEngine:
 
     def _step(self, model, w_s2d, ep, vis, rev
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One batch (or one device's share of it) on the device ->
+        """One replica's batch (batch_size // devices rows) on its device ->
         (argmax, max softmax). A replica that keeps w_s2d (_replicas_for)
         runs the fused route."""
         if w_s2d is not None:
@@ -279,7 +280,7 @@ class InferenceEngine:
         return logits.argmax(dim=1), torch.softmax(logits, dim=1).amax(dim=1)
 
     def _run(self, d: int, ep, vis, rev) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Replica d's step over every batch share of ep's rows, eagerly
+        """Replica d's step over each of its batches in ep's rows, eagerly
         (or under a capture) -> (argmax, max softmax) over all rows."""
         model, w_s2d = self._replicas[d]
         sub = self.batch_size // len(self.devices)
@@ -321,7 +322,7 @@ class InferenceEngine:
 
     def _host_rows(self, specs: np.ndarray, batches: int) -> List[torch.Tensor]:
         """One dispatch's endpoints (ep, vis, rev) on the host, device d's
-        rows of every batch contiguous in [d]; pinned for the card."""
+        batch of every round contiguous in [d]; pinned for the card."""
         nd = len(self.devices)
         sub = self.batch_size // nd
         host = [torch.from_numpy(np.ascontiguousarray(
@@ -367,12 +368,13 @@ class InferenceEngine:
         back in the specs' order."""
         n = specs.shape[0]
         bs, nd, total = self.batch_size, len(self.devices), sum(sizes)
-        sub = bs // nd                       # each device's rows of a batch
+        sub = bs // nd                       # a replica's batch
         with trace.span("engine.pad"):
             specs = np.concatenate(
                 [specs, np.repeat(self._SENTINEL, total * bs - n, 0)], 0)
         with (exact_f32() if not self.bf16 else contextlib.nullcontext()):
-            # device d holds rows [i + d*sub, i + (d+1)*sub) of each batch i
+            # device d holds rows [i*bs + d*sub, i*bs + (d+1)*sub) of each
+            # round i: the one-device engine's batch i*nd + d
             outs = [(torch.empty(total * sub, dtype=torch.int64, device=dev),
                      torch.empty(total * sub, dtype=torch.float32, device=dev))
                     for dev in self.devices]
@@ -385,7 +387,7 @@ class InferenceEngine:
                 for d, dev in enumerate(self.devices):
                     with trace.span("engine.dispatch") as sp, \
                             trace.device_span("engine.dispatch", dev):
-                        sp.set(card=d, batches=c)
+                        sp.set(card=d, batches=c, rows=c * sub)
                         if graphed:
                             inputs, graph = self._graph(d, c)
                             for buf, x in zip(inputs, host):
@@ -401,7 +403,7 @@ class InferenceEngine:
             # the call's one synchronization per device
             with trace.span("engine.sync"):
                 outs = [(p.cpu(), s.cpu()) for p, s in outs]
-        # [device, batch, row] -> [batch, device, row]: the specs' order
+        # [device, round, row] -> [round, device, row]: the specs' order
         with trace.span("engine.unshard"):
             preds, softs = (torch.stack(o).reshape(nd, -1, sub)
                             .transpose(0, 1).reshape(-1) for o in zip(*outs))

@@ -3,12 +3,14 @@ score reduction.
 
 Counterpart of the JAX package's parallel/mesh.py. A "mesh" here is a tuple
 of torch.devices: the InferenceEngine keeps one model replica on each and
-splits every batch's rows evenly across them (infer/engine.py), which is
-what the JAX engine's 'data'-axis sharding does. None means one device.
+gives each replica whole batches of batch_size rows (infer/engine.py), where
+the JAX engine's 'data'-axis sharding splits each batch's rows; rows are
+independent through the network, so the answers are the same. None means
+one device.
 
 On the CPU (device="cpu") a mesh of N is N replicas on the CPU, as the JAX
-package's tests run a mesh over virtual CPU devices, so the split path runs
-without a GPU.
+package's tests run a mesh over virtual CPU devices, so the data-parallel
+path runs without a GPU.
 
 Training takes a grid instead, make_train_mesh: rows are the 'data' axis,
 columns the 'model' axis. replicate_params and shard_params_tp place a
@@ -147,9 +149,9 @@ def ShardedInference(params, mesh: Sequence[torch.device],
                      batch_size: int = 128, bf16: bool = True,
                      fast: bool = True, chunk: int = 8):
     """Data-parallel raster+CNN forward over a mesh: the mesh-aware
-    InferenceEngine (batch rows split over the devices, one model replica
-    each; fast and chunk passed through), so the single- and multi-device
-    paths cannot drift."""
+    InferenceEngine (one model replica a device, each taking whole batches
+    of batch_size rows; fast and chunk passed through), so the single- and
+    multi-device paths cannot drift."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     return InferenceEngine(params, batch_size=batch_size, bf16=bf16,
                            fast=fast, chunk=chunk, devices=mesh)

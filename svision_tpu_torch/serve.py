@@ -238,7 +238,8 @@ def parse_arguments(argv=None) -> argparse.Namespace:
                     required=True)
     ap.add_argument("-s", dest="min_support", type=int, default=5)
     ap.add_argument("-t", dest="thread_num", type=int, default=1)
-    ap.add_argument("--batch_size", type=int, default=128)
+    ap.add_argument("--batch_size", type=int, default=128,
+                    help="rows a batch on each --mesh device")
     ap.add_argument("--mesh", default="auto")
     ap.add_argument("--exact", action="store_true",
                     help="f32 reference-faithful numerics (default bf16)")

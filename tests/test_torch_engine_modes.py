@@ -133,14 +133,18 @@ def test_outputs_do_not_depend_on_plan(params, mode):
         np.testing.assert_array_equal(s, got[0][1])
 
 
-def test_int8_does_not_depend_on_replicas(params):
-    """Each replica takes whole batches in int8 mode, so two CPU replicas
+@pytest.mark.parametrize("mode", ["int8", "bf16", "f32"])
+def test_int8_does_not_depend_on_replicas(params, mode):
+    """Each replica takes whole batches in every mode, so two CPU replicas
     give one replica's output bit for bit, at 40 specs (an odd number of
-    batches of 16: the second replica's last batch is all padding)."""
+    batches of 16: the second replica's last batch is all padding). An
+    int8 activation's scale is the max over its batch; the bf16 and f32
+    networks see the same batch shape and rows on either engine."""
     specs = random_specs(40, seed=0)
-    one = InferenceEngine(params, batch_size=16, int8=True, device="cpu")
-    two = InferenceEngine(params, batch_size=16, int8=True,
-                          devices=("cpu", "cpu"))
+    kw = {"int8": dict(int8=True), "bf16": {}, "f32": dict(bf16=False)}[mode]
+    one = InferenceEngine(params, batch_size=16, device="cpu", **kw)
+    two = InferenceEngine(params, batch_size=16, devices=("cpu", "cpu"),
+                          **kw)
     assert one.batch_size == 16 and two.batch_size == 32
     for a, b in zip(one.predict_specs(specs), two.predict_specs(specs)):
         np.testing.assert_array_equal(a, b)
@@ -150,8 +154,8 @@ def test_int8_does_not_depend_on_replicas(params):
 def test_sharded_inference_passes_fast_and_chunk(params, fast, chunk):
     """ShardedInference takes the JAX signature (fast=True, chunk=8) and
     hands both to the engine; the default arguments are the JAX ones. Its
-    output is the one-device engine's within test_torch_parallel.py's rule
-    (each replica's half batch may round otherwise in bf16)."""
+    output is the one-device engine's within test_torch_parallel.py's
+    rule."""
     mesh = M.make_mesh(2, "cpu")
     kw = {} if fast else dict(fast=fast, chunk=chunk)
     eng = M.ShardedInference(params, mesh, batch_size=16, **kw)

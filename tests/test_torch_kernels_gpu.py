@@ -570,6 +570,36 @@ def test_exact_engine_runs_the_fused_route(cuda, monkeypatch):
     assert float(np.abs(s - _f64_max_softmax(seg, monkeypatch)).max()) <= 1e-4
 
 
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_mesh_engine_equals_one_card(cuda, bf16):
+    """The data-parallel engine over two cards gives each replica whole
+    batches of 128 (a round of 256), so each card runs the one-card
+    engine's batch shape on the same rows: on 8,192 random specs the bf16
+    and the exact engine equal the one-card engine bit for bit, and each
+    engine.dispatch span of a chunk carries 8 x 128 = 1,024 rows."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    from svision_tpu_torch import trace
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from bench import random_specs
+    specs = random_specs(8192, seed=24)
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    one = InferenceEngine(init_params(0), bf16=bf16, device=devs[0])
+    two = InferenceEngine(init_params(0), bf16=bf16, devices=devs)
+    assert one.batch_size == 128 and two.batch_size == 256
+    want = one.predict_specs(specs)
+    two.warmup()
+    with trace.recording(devs) as rec:
+        got = two.predict_specs(specs)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    chunks = [s for s in rec.find("engine.dispatch", device=False)
+              if s.attrs["batches"] == two.chunk]
+    assert len(chunks) == 4 * 2          # 32 rounds, 4 chunks, 2 cards
+    assert all(s.attrs["rows"] == 1024 for s in chunks)
+
+
 # the engine's other modes (engine arguments), and their launches per batch
 MODES = {
     "bf16-compare": (dict(raster="compare"), (0, 2, 0)),

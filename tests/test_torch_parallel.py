@@ -17,6 +17,7 @@ from svision_tpu_torch import cli as port_cli
 from svision_tpu_torch import sim
 from svision_tpu_torch.infer.engine import InferenceEngine
 from svision_tpu_torch.models.checkpoint import save_params
+from svision_tpu_torch.ops import rasterize
 from svision_tpu_torch.parallel import mesh as M
 from tests.test_torch_pipeline import assert_vcf_match
 
@@ -42,7 +43,8 @@ def test_sharded_inference_matches_single(params, specs, bf16):
                              device="cpu").predict_specs(specs)
     sharded = M.ShardedInference(params, M.make_mesh(2, "cpu"),
                                  batch_size=16, bf16=bf16)
-    assert sharded.devices == (CPU, CPU) and sharded.batch_size == 16
+    # each replica takes whole batches of 16: a round of 32
+    assert sharded.devices == (CPU, CPU) and sharded.batch_size == 32
     p2, s2 = sharded.predict_specs(specs)
     np.testing.assert_array_equal(p1, p2)
     np.testing.assert_allclose(s1, s2, rtol=0, atol=1e-5)
@@ -58,24 +60,46 @@ def test_sharded_inference_matches_jax_mesh(params, specs):
     np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-5)
 
 
+def _row_keys(ep: torch.Tensor) -> torch.Tensor:
+    """A number for each row of endpoints [rows, SEGS, 4]."""
+    flat = ep.flatten(1).long()
+    return (flat * 7919 ** torch.arange(flat.shape[1]) % 1000003).sum(1)
+
+
 def test_split_rounds_batch_and_keeps_row_order(params, specs, monkeypatch):
-    """Three replicas: the batch of 16 rounds up to 18, each device gets 6
-    rows of every batch, and the rows come back in the specs' order."""
-    eng = InferenceEngine(params, batch_size=16, bf16=False,
+    """Three replicas at batch 8, chunk 2: a round of the plan is 24 rows,
+    each device's step takes a whole batch of 8, one dispatch of two rounds
+    carries the 40 specs (the second's third batch all padding), and the
+    output equals the
+    one-device engine's at batch 8. The network gives every one of these
+    rows the same class and softmax, so a second pass has each step answer
+    with a key of its own rows: the keys come back in the specs' order."""
+    eng = InferenceEngine(params, batch_size=8, bf16=False, chunk=2,
                           devices=M.make_mesh(3, "cpu"))
-    assert eng.batch_size == 18
+    assert eng.batch_size == 24 and eng.plan(len(specs)) == ([2], 0)
     rows, real = [], eng._step
 
     def recording(model, w, ep, vis, rev):
         rows.append(ep.shape[0])
         return real(model, w, ep, vis, rev)
     monkeypatch.setattr(eng, "_step", recording)
-    p, s = eng.predict_specs(specs[:25])
-    assert rows == [6] * 6            # 2 batches x 3 devices
-    p1, s1 = InferenceEngine(params, batch_size=18, bf16=False,
-                             device="cpu").predict_specs(specs[:25])
+    p, s = eng.predict_specs(specs)
+    assert rows == [8] * 6            # 2 rounds x 3 devices
+    p1, s1 = InferenceEngine(params, batch_size=8, bf16=False,
+                             device="cpu").predict_specs(specs)
     np.testing.assert_array_equal(p, p1)
-    np.testing.assert_allclose(s, s1, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(s, s1)
+
+    def keyed(model, w, ep, vis, rev):
+        k = _row_keys(ep)
+        return k, k.float()
+    monkeypatch.setattr(eng, "_step", keyed)
+    want = _row_keys(torch.from_numpy(
+        rasterize.specs_to_endpoints(specs)[0])).numpy()
+    assert len(set(want.tolist())) == len(specs)
+    p, s = eng.predict_specs(specs)
+    np.testing.assert_array_equal(p, want)
+    np.testing.assert_array_equal(s, want.astype(np.float32))
 
 
 @pytest.mark.parametrize("spec,device,gpus,want", [

@@ -117,16 +117,27 @@ def _engine_record(params, devices, specs):
     return eng, rec, off, on
 
 
-@pytest.mark.parametrize("devices", [None, ("cpu", "cpu")],
-                         ids=["one-device", "mesh-of-2"])
-def test_engine_call_spans_on_the_cpu(params, devices):
-    """An 11-row call at batch 4, chunk 2: a chunk of 2 batches and a
-    single batch. engine.call holds its rows, padding, dispatches, the
-    bf16 network's three split grouped layers and launch deltas (none on
-    the CPU); its children are the padding, one
-    endpoint span a dispatch, one dispatch span a dispatch a device, the
-    sync and the unshard; the outputs equal those made with recording
-    off, bit for bit."""
+# an 11-row call at batch 4, chunk 2, on each engine: its padded rows,
+# each dispatch's endpoint rows, and (card, batches, rows) of each
+# engine.dispatch span
+SPAN_CASES = {
+    # a chunk of 2 batches of 4, then a single batch
+    "one-device": (None, 12, [8, 4], [(0, 2, 8), (0, 1, 4)]),
+    # each replica takes whole batches of 4: rounds of 8, one chunk of 2
+    "mesh-of-2": (("cpu", "cpu"), 16, [16], [(0, 2, 8), (1, 2, 8)]),
+}
+
+
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_engine_call_spans_on_the_cpu(params, case):
+    """An 11-row call at batch 4, chunk 2 (SPAN_CASES). engine.call holds
+    its rows, padding, dispatches, the bf16 network's three split grouped
+    layers and launch deltas (none on the CPU); its children are the
+    padding, one endpoint span a dispatch, one dispatch span a dispatch a
+    device with the rows that device's launches take, the sync and the
+    unshard; the outputs equal those made with recording off, bit for
+    bit."""
+    devices, padded, host_rows, dispatches = SPAN_CASES[case]
     specs = random_specs(11, seed=4)
     eng, rec, off, on = _engine_record(params, devices, specs)
     for a, b in zip(off, on):
@@ -134,22 +145,52 @@ def test_engine_call_spans_on_the_cpu(params, devices):
     nd = len(eng.devices)
     (call,) = rec.find("engine.call")
     assert call.attrs == {
-        "rows": 11, "padded_rows": 12, "dispatches": 2, "graphed": False,
-        "split_groups": 3, "launches": {w.__name__: 0 for w in graphs.kernel_wrappers()}}
+        "rows": 11, "padded_rows": padded, "dispatches": len(host_rows),
+        "graphed": False, "split_groups": 3,
+        "launches": {w.__name__: 0 for w in graphs.kernel_wrappers()}}
     kids = rec.children(call)
     assert [s.name for s in sorted(kids, key=lambda s: s.start_ns)] == (
-        ["engine.pad", "engine.host_rows"] + ["engine.dispatch"] * nd
-        + ["engine.host_rows"] + ["engine.dispatch"] * nd
+        ["engine.pad"]
+        + (["engine.host_rows"] + ["engine.dispatch"] * nd) * len(host_rows)
         + ["engine.sync", "engine.unshard"])
     assert all(s.call == call.id for s in rec.spans)
-    assert [s.attrs["rows"] for s in rec.find("engine.host_rows")] == [8, 4]
-    assert [(s.attrs["card"], s.attrs["batches"])
-            for s in rec.find("engine.dispatch")] == (
-        [(d, 2) for d in range(nd)] + [(d, 1) for d in range(nd)])
+    assert [s.attrs["rows"] for s in rec.find("engine.host_rows")] == \
+        host_rows
+    assert [(s.attrs["card"], s.attrs["batches"], s.attrs["rows"])
+            for s in rec.find("engine.dispatch")] == dispatches
     # no device spans on the CPU, no capture
     assert not rec.find("engine.dispatch", device=True)
     assert not rec.counts and rec.dropped == 0
     assert rec.self_ns(call) >= 0
+
+
+# plan(n) of the one-device engine at batch 128, chunk 8, tail 'full'
+ONE_DEVICE_PLANS = {1: ([], 1), 128: ([], 1), 129: ([], 2),
+                    8192: ([8] * 8, 0)}
+
+
+@pytest.mark.parametrize("n", list(ONE_DEVICE_PLANS))
+def test_one_device_engine_keeps_its_batches(params, n, monkeypatch):
+    """With one device, the rule that gives each replica whole batches
+    leaves the engine as it was: batch 128, the JAX engine's plan at chunk
+    8 and tail 'full', and one engine.dispatch span a dispatch, on card 0,
+    whose rows are its batches x 128. The network is stubbed out: only
+    the dispatch runs."""
+    eng = InferenceEngine(params, device="cpu")
+    assert eng.batch_size == 128 and eng.devices == (torch.device("cpu"),)
+    assert eng.plan(n) == ONE_DEVICE_PLANS[n]
+
+    def step(model, w_s2d, ep, vis, rev):
+        z = torch.zeros(ep.shape[0])
+        return z.long(), z
+    monkeypatch.setattr(eng, "_step", step)
+    with trace.recording() as rec:
+        p, _ = eng.predict_specs(random_specs(n, seed=n))
+    assert p.shape == (n,)
+    chunks, singles = ONE_DEVICE_PLANS[n]
+    assert [(s.attrs["card"], s.attrs["batches"], s.attrs["rows"])
+            for s in rec.find("engine.dispatch")] == \
+        [(0, c, c * 128) for c in chunks + [1] * singles]
 
 
 def test_train_step_spans_on_the_cpu(params):
