@@ -156,21 +156,22 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 def trace_busy(path):
     """Device time in a torch.profiler Chrome trace: busy ms (the union of
-    the kernel and copy intervals), the span from the first to the last of
-    them, their count, and the five kernels that take the most time."""
+    the kernel and copy intervals, benchmark/devtrace.py's union), the span
+    from the first to the last of them, their count, and the five kernels
+    that take the most time."""
     with open(path) as fh:
         events = [e for e in json.load(fh)["traceEvents"]
                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     if not events:
         raise ValueError(f"{path}: no device activity traced")
-    from svision_tpu_torch.timing import union_length
+    from benchmark.devtrace import union
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
              for e in events]
     by_name = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"device_busy_ms": union_length(spans) / 1e3,
+    return {"device_busy_ms": sum(b - a for a, b in union(spans)) / 1e3,
             "device_span_ms": (max(e for _, e in spans)
                                - min(s for s, _ in spans)) / 1e3,
             "device_ops": len(events),

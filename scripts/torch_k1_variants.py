@@ -15,9 +15,10 @@ kernel). In f32 and bf16, at S = 2
 and at batch 128 and 256 (chip_smoke's random specs with its DEGENERATE
 ones), each must be bit-equal to the plain raster. Its time is the mean of
 20 back-to-back launches with the queue held (chip_smoke.time_ms), taken in
-the order A B ... B A and averaged; beside it the bound (the bytes the call
-must move: the inputs read once, the output written once, at 3.35 TB/s)
-and the share of the bound reached.
+the order A B ... B A and averaged; beside it the bound (chip_smoke.k1_least:
+the bytes the call must move, as benchmark/work.py counts them at S = 2,
+over the card's memory rate in benchmark/peaks.json) and the share of the
+bound reached.
 """
 
 from __future__ import annotations
@@ -135,8 +136,7 @@ def measure(calls: dict, batches, seg_counts) -> list:
                 for name, call in calls.items():
                     assert torch.equal(call(*seg, dt), want), \
                         f"variant {name} {kind} S={segs} N={n} disagrees"
-                bound, _ = chip_smoke.bound_ms(chip_smoke.nbytes(*seg, want),
-                                               0, kind)
+                bound, by = chip_smoke.k1_least(seg, want, kind)
                 timed = dict(calls, **{"context: torch zero_ of the output":
                                        lambda *_, w=want: w.zero_()})
                 t = {name: [] for name in timed}
@@ -147,7 +147,7 @@ def measure(calls: dict, batches, seg_counts) -> list:
                     ms = sum(t[name]) / 2
                     rows.append(dict(
                         variant=name, dtype=kind, segs=segs, batch=n, ms=ms,
-                        turns_ms=t[name], bound_ms=bound, bound_by="bytes",
+                        turns_ms=t[name], bound_ms=bound, bound_by=by,
                         bound_fraction=bound / ms))
                     print(json.dumps(rows[-1]), flush=True)
                 del want

@@ -270,8 +270,8 @@ def measure_backward(calls: dict, batch: int) -> list:
                               (torch.float32, "f32", 1e-5)):
             x, b, dy = x32.to(dt), b32.to(dt), dy32.to(dt)
             want, want_db = plain(x, b, dy)
-            bound, by = chip_smoke.bound_ms(
-                chip_smoke.nbytes(x, b, dy, want, want_db), 0, "f32")
+            bound, by = chip_smoke.least(*chip_smoke.stage(
+                "bias_relu_pool_lrn_backward", kind, batch, tail))
             checks = {}
             for name, call in timed.items():
                 if name.startswith("diagnostic"):

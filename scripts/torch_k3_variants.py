@@ -18,10 +18,11 @@ chip_smoke's random specs with its DEGENERATE ones, on densely lit specs
 version within 1e-4 of its largest output (chip_smoke's f32 bar) under
 exact_f32(), but for the diagnostic ones. Its time is the mean of 20
 back-to-back launches with the queue held (timing.time_ms), 5 at batch
-4,096, taken in the order A B ... B A and averaged; beside it the byte bound (the inputs read once, the
-output written once, at 3.35 TB/s), the share of it reached, and a torch
-zero_ of the output's bytes (a write of the same bytes with nothing
-computed).
+4,096, taken in the order A B ... B A and averaged; beside it the bound
+(chip_smoke.least of benchmark/work.py's K3 stage in f32, the lit pixels'
+multiply-accumulates counted) and what bounds it, the share of it reached,
+and a torch zero_ of the output's bytes (a write of the same bytes with
+nothing computed).
 """
 
 from __future__ import annotations
@@ -161,8 +162,9 @@ def measure(calls: dict, w) -> list:
                 err = (call(*seg, w) - want).abs().max().item()
                 assert err <= 1e-4 * scale, \
                     f"variant {name} {case}: {err} > 1e-4 * {scale}"
-        bound, _ = chip_smoke.bound_ms(chip_smoke.nbytes(*seg, w, want), 0,
-                                       "f32")
+        bound, by = chip_smoke.least(*chip_smoke.stage(
+            "conv1_fused_raster", "f32", n,
+            lit_macs=chip_smoke.lit_macs(*seg)))
         timed = dict(calls, **{"context: torch zero_ of the output":
                                lambda *_, o=want: o.zero_()})
         reps = 20 if n <= chip_smoke.B else 5
@@ -174,7 +176,7 @@ def measure(calls: dict, w) -> list:
             ms = sum(t[name]) / 2
             rows.append(dict(variant=name, case=case, batch=n, ms=ms,
                              turns_ms=t[name], bound_ms=bound,
-                             bound_by="bytes", bound_fraction=bound / ms))
+                             bound_by=by, bound_fraction=bound / ms))
             print(json.dumps(rows[-1]), flush=True)
         del want
     return rows

@@ -130,33 +130,16 @@ def step_rate(step, batch: int, steps: int = RATE_STEPS) -> float:
 
 
 def busy_by_device(step) -> dict:
-    """One call of step() profiled (torch.profiler), every GPU synchronized
-    at both ends: the host-clock wall ms, and each GPU's busy ms (the
-    union of its traced kernels' and copies' intervals)."""
+    """One call of step() traced as the benchmark traces its slice
+    (benchmark/devtrace.py), every GPU synchronized at both ends: the
+    window's ms, and each GPU's busy ms (the union of its kernels, copies
+    and sets)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from svision_tpu_torch.timing import on_device
-    sync_all()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        sync_all()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = {}
-    for e in prof.events():
-        if on_device(e):
-            spans.setdefault(e.device_index, []).append(
-                (e.time_range.start, e.time_range.end))
-    busy = {}
-    for dev, sp in sorted(spans.items()):
-        us, last = 0.0, float("-inf")
-        for start, end in sorted(sp):
-            if end > last:
-                us += end - max(start, last)
-                last = end
-        busy[dev] = us / 1e3
-    return {"wall_ms": wall_ms, "busy_ms_by_gpu": busy}
+    from benchmark import devtrace
+    trace = devtrace.profile(step, [torch.device("cuda", i) for i in
+                                    range(torch.cuda.device_count())])
+    return {"wall_ms": trace.window_s * 1e3,
+            "busy_ms_by_gpu": {d: s * 1e3 for d, s in trace.busy.items()}}
 
 
 def train_rates(smoke, params) -> dict:

@@ -13,9 +13,9 @@ random specs, with the default engine (bf16, raster 's2d', CUDA graphs):
      network after conv1 (AlexNet.forward_conv1); each captured as a CUDA
      graph and timed over its replays with the queue held
      (svision_tpu_torch.timing.graph_ms);
-  5. a torch.profiler breakdown of one pipelined call by kernel, with
-     timing.on_device's rule (torch's {lambda()#1} kernels count), and
-     the device's idle share.
+  5. one pipelined call traced as the benchmark traces its slice
+     (benchmark/devtrace.py): the device's busy time, its idle share and
+     its ten longest operations.
 
     python scripts/torch_profile_engine.py [--batch 256] [--batches 16]
         [--device cuda|cpu]
@@ -44,7 +44,7 @@ def main(argv=None):
 
     import torch
     from svision_tpu_torch.timing import device_label, random_specs
-    from svision_tpu_torch.timing import device_time, graph_ms
+    from svision_tpu_torch.timing import graph_ms
     from svision_tpu_torch.device import resolve_device
     from svision_tpu_torch.infer.engine import InferenceEngine
     from svision_tpu_torch.models.alexnet import (AlexNet, cast_params_bf16,
@@ -102,20 +102,16 @@ def main(argv=None):
 
     # 5. the profile of one pipelined call
     if dev.type == "cuda":
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.predict_specs(specs)
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        per_kernel, busy_ms = device_time(prof, wall_ms, "profile")
-        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:16]
+        from benchmark import devtrace
+        trace = devtrace.profile(lambda: engine.predict_specs(specs), [dev])
+        wall_ms, busy_ms = trace.window_s * 1e3, trace.busy_s * 1e3
         report["profile"] = dict(
             wall_ms_per_batch=wall_ms / args.batches,
             device_ms_per_batch=busy_ms / args.batches,
-            idle_share=1.0 - busy_ms / wall_ms,
-            top_kernels_ms_per_batch={k[:120]: t / args.batches
-                                      for k, t in top})
+            idle_share=trace.idle_pct() / 100,
+            top_kernels_ms_per_batch={
+                k: t * 1e3 / args.batches
+                for k, t in trace.breakdown()["device_ops"]})
         print(f"profile: {wall_ms / args.batches:.3f} ms a batch wall, "
               f"{busy_ms / args.batches:.3f} on the device, idle share "
               f"{report['profile']['idle_share']:.3f}", flush=True)

@@ -28,24 +28,24 @@ by two routes, each line naming its route:
     conv1 (K3)      K3 in f32, from the endpoints
     +conv1blk ...   then the same stages.
 
-FLOPs are counted in closed form, 2 x the multiply-accumulates of every
-conv and fc layer of the reference network (conv1 as 11x11x3 at 55x55),
-and read against the card's dense peak for the step's dtype (bf16 tensor
-cores; f32 CUDA cores with --exact); bytes are the least a prefix must
-move (its inputs and weights read once, its output written once) against
-the HBM rate. The k3 route's conv1 counts the work this batch needs, as
-chip_smoke's phase 2 does: K3 f32 adds a weight for each lit term under
-an output's window and each output channel, and skips the rest. The
-whole step's FLOPs per image are printed too.
+FLOPs are the benchmark's (benchmark/work.py's layer_macs on the `model`
+of its bf16 configuration): 2 x the multiply-accumulates of every conv and
+fc layer of the reference network (conv1 as 11x11x3 at 55x55), read
+against the card's dense peak for the step's dtype (bf16 tensor cores;
+f32 CUDA cores with --exact); bytes are the least a prefix must move (its
+inputs and weights read once, its output written once) against the
+memory rate. The k3 route's conv1 counts the work this batch needs,
+work.conv1_lit_macs of its raster, as chip_smoke's phase 2 does: a lit
+pixel's multiply-accumulates, none for a dark one. The whole step's FLOPs
+per image are printed too.
 
     python scripts/torch_roofline.py [--batch 1024] [--reps 20] [--exact]
         [--device cuda|cpu] [--peak-flops F --hbm-bw B]
 
-The card's peaks are named below for the "NVIDIA H100 80GB HBM3" (SXM5);
-for any other name nvidia-smi prints, --peak-flops and --hbm-bw are
-required. Without a GPU it raises unless given --device cpu, where times
-are host-clock means and no share is given. Prints one JSON line per
-prefix, then one summary line.
+The card's peaks are benchmark/peaks.json's; for a card it does not name,
+--peak-flops and --hbm-bw are required. Without a GPU it raises unless
+given --device cpu, where times are host-clock means and no share is
+given. Prints one JSON line per prefix, then one summary line.
 """
 import argparse
 import contextlib
@@ -56,11 +56,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# NVIDIA H100 datasheet, SXM5: 1,979 TFLOP/s bf16 with sparsity, half that
-# dense; 3.35 TB/s HBM3
-PEAKS = {"NVIDIA H100 80GB HBM3": (989.4e12, 3.35e12)}
-# the same datasheet: 67 TFLOP/s f32 outside the tensor cores
-F32_FLOPS = {"NVIDIA H100 80GB HBM3": 67e12}
+# the benchmark's configuration whose `model` the FLOPs are counted on
+CONFIG = "svision-alexnet-bf16"
 
 # (label, how many of AlexNet.stages() follow K3; 0: the plain raster)
 STAGES = (("raster", 0), ("+conv1blk", 1), ("+conv2blk", 2), ("+conv3", 3),
@@ -73,24 +70,11 @@ EXACT_STAGES = {
 }
 
 
-def layer_macs():
-    """{layer: multiply-accumulates per image} of the reference network,
-    from alexnet's layer specs: conv1 11x11 stride 4 VALID on 227x227x3,
-    3x3/2 max-pools after conv1, conv2 and conv5, the others SAME."""
-    from svision_tpu_torch.models.alexnet import (INPUT_SIZE, _CONV_SPECS,
-                                                  _FC_SPECS)
-    macs = {}
-    size, cin = INPUT_SIZE, 3
-    for name, kh, kw, cout, stride, padding, groups in _CONV_SPECS:
-        if padding == "VALID":
-            size = (size - kh) // stride + 1
-        macs[name] = size * size * cout * kh * kw * (cin // groups)
-        if name in ("conv1", "conv2", "conv5"):
-            size = (size - 3) // 2 + 1
-        cin = cout
-    for name, n_in, n_out in _FC_SPECS:
-        macs[name] = n_in * n_out
-    return macs
+def bench_model():
+    """The network's widths as the benchmark counts them: the `model` of
+    its configuration CONFIG (benchmark/configs)."""
+    from benchmark import spec
+    return spec.config(spec.load(), CONFIG)["model"]
 
 
 def stage_layers(n_stages):
@@ -101,7 +85,8 @@ def stage_layers(n_stages):
 
 def stage_flops(n_stages):
     """FLOPs per image of a prefix: 2 x its layers' MACs."""
-    macs = layer_macs()
+    from benchmark import work
+    macs = work.layer_macs(bench_model())
     return sum(2 * macs[k] for k in stage_layers(n_stages))
 
 
@@ -162,35 +147,24 @@ def build_exact_prefix(model, n_stages, w_s2d=None):
     return run
 
 
-def conv1_lit_macs(ep, vis, rev):
-    """K3 f32's multiply-accumulates on a batch: the lit s2d predicate terms
-    under every output's 3x3x48 window, times 96 output channels."""
-    import torch
-    import torch.nn.functional as F
-    from svision_tpu_torch.ops import rasterize
-    lit = rasterize.render_raster_s2d(ep, vis, rev, dtype=torch.float32)
-    ones = torch.ones((1, lit.shape[3], 3, 3), device=lit.device)
-    return 96 * int(F.conv2d(lit.permute(0, 3, 1, 2), ones).sum().item())
-
-
-def nbytes(tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def peaks(label, peak_flops=None, hbm_bw=None, f32=False):
     """(FLOP/s, B/s) of the card named by nvidia-smi's line, the FLOP/s
     those of bf16 tensor cores, or of f32 CUDA cores given f32: given, or
-    from PEAKS and F32_FLOPS; raises for an unnamed card; None on the
-    CPU."""
+    benchmark/peaks.json's; raises for a card it does not name; None on
+    the CPU."""
+    from benchmark import work
     if label == "cpu":
         return None
     if peak_flops and hbm_bw:
         return peak_flops, hbm_bw
     name = label.split(",")[0].strip()
-    if name not in PEAKS:
+    try:
+        p = work.peaks(name)
+    except KeyError:
         raise SystemExit(f"no peaks known for {name!r}: pass --peak-flops "
-                         "and --hbm-bw")
-    return (F32_FLOPS[name], PEAKS[name][1]) if f32 else PEAKS[name]
+                         "and --hbm-bw") from None
+    return (p["float32_flops" if f32 else "bfloat16_flops"],
+            p["hbm_bytes_per_s"])
 
 
 def main(argv=None):
@@ -204,12 +178,13 @@ def main(argv=None):
     ap.add_argument("--peak-flops", type=float, default=None,
                     help="the card's dense FLOP/s in the step's dtype, "
                     "bf16 or f32 with --exact (required for a card not in "
-                    "PEAKS)")
+                    "benchmark/peaks.json)")
     ap.add_argument("--hbm-bw", type=float, default=None,
                     help="the card's memory rate in B/s (with --peak-flops)")
     args = ap.parse_args(argv)
 
     import torch
+    from benchmark import work
     from svision_tpu_torch.timing import device_label, random_specs
     from svision_tpu_torch.timing import graph_ms
     from svision_tpu_torch.device import resolve_device
@@ -228,7 +203,9 @@ def main(argv=None):
     # the MACs of a layer where the route's kernel does less than the
     # reference layer (K3 f32: the lit terms only)
     routes, weights = {}, {}
-    macs = {route: {k: v * args.batch for k, v in layer_macs().items()}
+    model_widths = bench_model()
+    macs = {route: {k: v * args.batch
+                    for k, v in work.layer_macs(model_widths).items()}
             for route in ("s2d_bf16",) + tuple(EXACT_STAGES)}
     if args.exact:
         params = init_params(0)
@@ -241,7 +218,8 @@ def main(argv=None):
             routes[route] = [(lab, build_exact_prefix(model, n, w_s2d),
                               exact_layers(n)) for lab, n in stages]
             weights[route] = layer_bytes(model, w_s2d)
-        macs["k3"]["conv1"] = conv1_lit_macs(ep, vis, rev)
+        macs["k3"]["conv1"] = work.conv1_lit_macs(
+            rasterize.render_raster(ep, vis, rev), model_widths)
     else:
         model = AlexNet.from_params(fold_params_bf16(init_params(0)),
                                     s2d=True, device=dev)
@@ -259,8 +237,8 @@ def main(argv=None):
                 ms = graph_ms(lambda: fn(ep, vis, rev), dev, reps=args.reps)
                 out = fn(ep, vis, rev)
                 flops = sum(2 * macs[route][k] for k in layers)
-                moved = nbytes((ep, vis, rev)) + nbytes(
-                    out if isinstance(out, tuple) else (out,)) + sum(
+                outs = out if isinstance(out, tuple) else (out,)
+                moved = sum(t.nbytes for t in (ep, vis, rev, *outs)) + sum(
                     weights[route][k] for k in layers)
                 line = {"section": label_s, "cum_ms": ms,
                         "section_ms": ms - prev_ms,
@@ -280,7 +258,7 @@ def main(argv=None):
                "peak_flops": peak[0] if peak else None,
                "hbm_bw": peak[1] if peak else None,
                "flops_per_image": stage_flops(len(STAGES) - 1),
-               "layer_macs_per_image": layer_macs()}
+               "layer_macs_per_image": work.layer_macs(model_widths)}
     print(json.dumps(summary), flush=True)
     return {"sections": lines, **summary}
 
@@ -288,10 +266,10 @@ def main(argv=None):
 def layer_bytes(model, w_s2d):
     """{layer: bytes of its weights and bias}; conv1 the folded weights'
     when given w_s2d."""
-    out = {name: nbytes(getattr(model, name).parameters())
-           for name in layer_macs()}
+    out = {name: sum(p.nbytes for p in getattr(model, name).parameters())
+           for name in stage_layers(len(model.STAGE_LAYERS))}
     if w_s2d is not None:
-        out["conv1"] = nbytes((w_s2d, model.conv1.bias))
+        out["conv1"] = w_s2d.nbytes + model.conv1.bias.nbytes
     return out
 
 if __name__ == "__main__":

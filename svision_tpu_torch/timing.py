@@ -1,12 +1,14 @@
-"""Timing helpers of the port's harness and tools: device times with CUDA
-events behind a held queue, CUDA-graph replays, torch.profiler device
-time, the benchmark's random specs, and the card's nvidia-smi line.
+"""Timing helpers of the port's tools: device times with CUDA events
+behind a held queue, CUDA-graph replays, the random and densely lit specs
+they run on, and the card's nvidia-smi line. How much work a kernel does,
+the card's peaks and the device's busy time in a profile are the
+benchmark's (benchmark/work.py, benchmark/devtrace.py); the tools read
+them there.
 
-chip_smoke.py, bench_torch.py and the scripts/torch_*.py tools import them
-from here, so none of them is a library of another. torch is imported where
-it is used: chip_smoke.py imports this module at its top, and the spawned
-collection workers of the CLI runs it makes (-t N) import chip_smoke.py
-again as their main module, so they stay light.
+chip_smoke.py and the scripts/torch_*.py tools import these from here. torch
+is imported where it is used: chip_smoke.py imports this module at its top,
+and the spawned collection workers of the CLI runs it makes (-t N) import
+chip_smoke.py again as their main module, so they stay light.
 """
 
 from __future__ import annotations
@@ -133,44 +135,3 @@ def graph_ms(fn, device, reps: int = 20, best_of: int = 3) -> float:
     with torch.cuda.device(device):
         return min(time_ms(graph.replay, reps) for _ in range(best_of))
 
-
-def on_device(e) -> bool:
-    """A profiler event that is a kernel or copy on the device. A user
-    annotation's span on the device track (Optimizer.step#SGD.step) is
-    none; a kernel whose name holds a lambda (torch's elementwise and copy
-    kernels: "...::{lambda()#1}...") is one."""
-    from torch.autograd import DeviceType
-    return (e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and ("#" not in e.key or "{lambda(" in e.key))
-
-
-def union_length(spans) -> float:
-    """The length that (start, end) intervals cover together."""
-    total, last = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > last:
-            total += end - max(start, last)
-            last = end
-    return total
-
-
-def device_time(prof, wall_ms: float, what: str):
-    """({kernel: device ms}, device busy ms) of a torch.profiler run: busy
-    is the union of the traced kernels' and copies' intervals (copies
-    overlap kernels, so the sum of their times may exceed the wall)."""
-    per_kernel = {}
-    for e in prof.key_averages():
-        if not on_device(e):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
-    spans = [(e.time_range.start, e.time_range.end)
-             for e in prof.events() if on_device(e)]
-    assert spans, f"{what}: no device activity traced"
-    busy_ms = union_length(spans) / 1e3
-    assert busy_ms <= wall_ms, (
-        f"{what}: {busy_ms} ms on the device > {wall_ms} ms wall")
-    return per_kernel, busy_ms

@@ -1,5 +1,6 @@
 """The port stands alone: it imports with jax absent, imports nothing of
-jax, ml_dtypes or the JAX package (nor does chip_smoke.py), its entry
+jax, ml_dtypes or the JAX package (nor does chip_smoke.py) nor of its own
+tools and benchmark, its entry
 points refuse to run without a GPU unless asked for the CPU, and its kernel
 wrappers never quietly fall back to their plain versions."""
 import ast
@@ -39,7 +40,7 @@ def test_imports_with_jax_absent():
 
 SCRIPTS = os.path.join(ROOT, "scripts")
 # the port's files outside its package
-ROOT_FILES = ("chip_smoke.py", "bench_torch.py", "__graft_entry_torch__.py")
+ROOT_FILES = ("chip_smoke.py", "__graft_entry_torch__.py")
 
 
 def _port_scripts():
@@ -81,6 +82,23 @@ def test_no_jax_or_reference_package_imports():
             top = mod.split(".")[0]
             if top in banned:
                 bad.append((os.path.relpath(path, ROOT), mod))
+    assert not bad, bad
+
+
+def test_package_imports_none_of_its_tools():
+    """The tools depend on the benchmark and the package, never the other
+    way: no module under svision_tpu_torch/ imports benchmark/, a root
+    file of the port or a script."""
+    scripts = {f[:-3] for f in os.listdir(SCRIPTS) if f.endswith(".py")}
+    banned = {"benchmark"} | {f[:-3] for f in ROOT_FILES} | scripts
+    bad = []
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                bad += [(os.path.relpath(path, ROOT), mod)
+                        for mod in _imported_modules(path)
+                        if mod.split(".")[0] in banned]
     assert not bad, bad
 
 

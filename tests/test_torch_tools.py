@@ -1,17 +1,20 @@
 """The port's benchmark, profiling and entry-point tools on the CPU, against
 the JAX package's twins where they have one:
 
-  * bench_torch.random_specs equals bench.random_specs, and bench_torch
-    prints bench.py's keys;
+  * timing.random_specs equals bench.random_specs;
   * __graft_entry_torch__.entry(device="cpu") gives what the JAX entry()
     gives on the same specs and weights (the JAX package's
     init_params(PRNGKey(0)), carried across as numpy) at the bf16 bar of
     tests/test_torch_engine_modes.py: argmax agreement >= 0.9, max softmax
     within 0.02, its median difference within 0.004;
   * dryrun_multichip(2, device="cpu") passes;
-  * scripts/torch_roofline.py's closed-form FLOP count equals 2 x the MACs
-    of conv1-5 and fc6-8 written out layer by layer, and its full prefix is
-    the engine's step;
+  * the benchmark's MAC count (benchmark/work.py), which
+    scripts/torch_roofline.py reads, equals the MACs of conv1-5 and fc6-8
+    written out layer by layer, its peaks are benchmark/peaks.json's, and
+    its full prefix is the engine's step;
+  * chip_smoke.py's bound of each phase-2 kernel launch is
+    benchmark/work.py's least time of the same stage, whose bytes are
+    those of the tensors the launch reads and writes;
   * scripts/torch_e2e_bench.py's build_inputs writes the bytes
     scripts/e2e_bench.py's writes, and with --cli-extra=--exact and the
     JAX weights its report has the JAX script's reads, events, recall,
@@ -30,7 +33,7 @@ import pytest
 import torch
 
 import bench
-import bench_torch
+from svision_tpu_torch.timing import random_specs
 
 torch.set_num_threads(2)
 
@@ -69,25 +72,8 @@ def jax_weights(jax_entry):
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (129, 0), (1000, 3), (4096, 7)])
 def test_random_specs_equal_bench(n, seed):
-    np.testing.assert_array_equal(bench_torch.random_specs(n, seed),
+    np.testing.assert_array_equal(random_specs(n, seed),
                                   bench.random_specs(n, seed))
-
-
-def test_bench_line_has_bench_keys(capsys):
-    line = bench_torch.main(["--device", "cpu", "--batch", "8",
-                             "--batches", "2"])
-    assert json.loads(capsys.readouterr().out.strip()) == line
-    assert {"metric", "value", "unit", "vs_baseline"} <= set(line)
-    assert line["metric"].startswith("similarity_images_per_s_cpu")
-    assert line["device"] == "cpu" and line["value"] > 0
-    assert line["vs_baseline"] == line["value"] / bench_torch.baseline()
-
-
-def test_bench_refuses_a_missing_baseline(monkeypatch, tmp_path):
-    monkeypatch.setattr(bench_torch, "BASELINE_CACHE",
-                        str(tmp_path / "none.json"))
-    with pytest.raises(FileNotFoundError):
-        bench_torch.main(["--device", "cpu", "--batches", "1"])
 
 
 def test_entry_matches_jax_entry(jax_entry, jax_weights):
@@ -117,6 +103,7 @@ def test_dryrun_needs_its_gpus(monkeypatch):
 
 
 def test_roofline_flops_layer_by_layer():
+    from benchmark import work
     roof = load_script("torch_roofline")
     want = {"conv1": 55 * 55 * 96 * 11 * 11 * 3,
             "conv2": 27 * 27 * 256 * 5 * 5 * 48,
@@ -124,8 +111,9 @@ def test_roofline_flops_layer_by_layer():
             "conv4": 13 * 13 * 384 * 3 * 3 * 192,
             "conv5": 13 * 13 * 256 * 3 * 3 * 192,
             "fc6": 6 * 6 * 256 * 4096, "fc7": 4096 * 4096, "fc8": 4096 * 5}
-    assert roof.layer_macs() == want
-    assert roof.stage_flops(6) == 2 * sum(want.values()) == 1440662592
+    assert work.layer_macs(roof.bench_model()) == want
+    assert roof.stage_flops(6) == work.inference_flops(roof.bench_model()) \
+        == 2 * sum(want.values()) == 1440662592
     assert roof.stage_flops(0) == 0
     assert roof.stage_flops(2) == 2 * (want["conv1"] + want["conv2"])
     # every layer in one stage of the step, in the network's order
@@ -134,8 +122,14 @@ def test_roofline_flops_layer_by_layer():
 
 def test_roofline_peaks_rules():
     roof = load_script("torch_roofline")
-    assert roof.peaks("NVIDIA H100 80GB HBM3, 700.00 W") == (989.4e12,
-                                                            3.35e12)
+    with open(os.path.join(ROOT, "benchmark", "peaks.json")) as f:
+        h100 = json.load(f)["NVIDIA H100 80GB HBM3"]
+    label = "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert roof.peaks(label) == (h100["bfloat16_flops"],
+                                 h100["hbm_bytes_per_s"])
+    assert roof.peaks(label, f32=True) == (h100["float32_flops"],
+                                           h100["hbm_bytes_per_s"])
+    assert roof.peaks(label, 7e14, 2e12) == (7e14, 2e12)
     assert roof.peaks("NVIDIA H100 PCIe, 350.00 W", 7e14, 2e12) == (7e14,
                                                                    2e12)
     with pytest.raises(SystemExit, match="--peak-flops"):
@@ -151,7 +145,7 @@ def test_roofline_full_prefix_is_the_engine_step(capsys):
     eng = InferenceEngine(init_params(0), batch_size=4, device="cpu")
     model, w = eng._replicas[0]
     ep, vis, rev = (torch.from_numpy(a) for a in rasterize.specs_to_endpoints(
-        bench_torch.random_specs(4, 2)))
+        random_specs(4, 2)))
     with torch.inference_mode():
         got = roof.build_prefix(model, w, 6)(ep, vis, rev)
         want = eng._step(model, w, ep, vis, rev)
@@ -191,7 +185,7 @@ def test_roofline_exact_prefixes_are_the_exact_steps(capsys):
                                  device="cpu")
     w = folded.conv1_weight_hwio()
     seg = tuple(torch.from_numpy(a) for a in rasterize.specs_to_endpoints(
-        bench_torch.random_specs(4, 2)))
+        random_specs(4, 2)))
     with torch.inference_mode(), exact_f32():
         got = roof.build_exact_prefix(model, 6)(*seg)
         want = eng._step(model, None, *seg)
@@ -208,8 +202,6 @@ def test_roofline_exact_prefixes_are_the_exact_steps(capsys):
                       1: (4, 27, 27, 96), 5: (4, 256, 6, 6)}
     assert k3 == (4, 55, 55, 96)
     assert roof.exact_layers(None) == [] and roof.exact_layers(0) == ["conv1"]
-    assert roof.peaks("NVIDIA H100 80GB HBM3, 700.00 W", f32=True) == (
-        67e12, 3.35e12)
     out = roof.main(["--device", "cpu", "--batch", "2", "--reps", "1",
                      "--exact"])
     assert [(s["route"], s["section"]) for s in out["sections"]] == [
@@ -217,16 +209,90 @@ def test_roofline_exact_prefixes_are_the_exact_steps(capsys):
         for lab, _ in stages]
     assert all(s["cum_ms"] > 0 for s in out["sections"]) and out["exact"]
     assert len(capsys.readouterr().out.strip().splitlines()) == 16
-    # the k3 route's conv1 counts K3's lit terms; the k1_cudnn route's the
-    # dense conv
+    # the k3 route's conv1 counts the lit pixels' MACs; the k1_cudnn
+    # route's the dense conv
+    from benchmark import work
     two = tuple(torch.from_numpy(a) for a in rasterize.specs_to_endpoints(
-        bench_torch.random_specs(2, 0)))
+        random_specs(2, 0)))
+    model = roof.bench_model()
     first = {}
     for s in out["sections"]:
         if s["flops"]:
             first.setdefault(s["route"], s)
-    assert first["k3"]["flops"] == 2 * roof.conv1_lit_macs(*two) > 0
-    assert first["k1_cudnn"]["flops"] == 2 * 2 * roof.layer_macs()["conv1"]
+    assert first["k3"]["flops"] == 2 * work.conv1_lit_macs(
+        rasterize.render_raster(*two), model) > 0
+    assert first["k1_cudnn"]["flops"] == 2 * 2 * work.layer_macs(
+        model)["conv1"]
+
+
+# phase 2's kernel launches: (kernel, dtype, tail, segments an image)
+PHASE2 = ([("render_raster", k, None, s) for s in (2, 4)
+           for k in ("f32", "bf16")]
+          + [(name, k, t, 2) for name in ("bias_relu_pool_lrn",
+                                          "bias_relu_pool_lrn_backward")
+             for t in ("conv1", "conv2") for k in ("bf16", "f32")]
+          + [("conv1_fused_raster", k, None, 2) for k in ("bf16", "f32")])
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+@pytest.mark.parametrize("kernel,kind,tail,segs", PHASE2)
+def test_chip_smoke_bound_is_the_benchmarks(monkeypatch, kernel, kind, tail,
+                                            segs):
+    """chip_smoke's bound of a phase-2 launch, here on 3 images, is
+    benchmark/work.py's least time of the same stage on peaks.json's H100:
+    its bytes those of the tensors the launch reads and writes (the plain
+    version's, on the CPU), its FLOPs read against tensor cores for K3 in
+    bf16 and CUDA cores otherwise, labelled by the larger term. K1 on
+    fragments, which the benchmark does not count, takes its tensors'
+    bytes."""
+    from benchmark import work
+    from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, rasterize
+    smoke = load_root("chip_smoke")
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *_: H100)
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[kind]
+    n = 3
+    seg = tuple(torch.from_numpy(a) for a in rasterize.specs_to_endpoints(
+        random_specs(n, 1)))
+    gen = torch.Generator().manual_seed(0)
+    peak, flops, macs = "float32", 0, 0
+    if kernel == "render_raster":
+        if segs == 4:
+            seg = smoke.fragments(*seg)
+        out = rasterize.render_raster(*seg, dtype=dt)
+        tensors, got = (*seg, out), smoke.k1_least(seg, out, kind)
+    elif kernel == "conv1_fused_raster":
+        w = torch.randn((3, 3, 48, 96), generator=gen).to(dt)
+        out = fused_conv1.conv1_fused_raster_plain(*seg, w)
+        macs = smoke.lit_macs(*seg)
+        assert macs > 0
+        tensors, flops = (*seg, w, out), 2 * macs
+        peak = {"bf16": "bfloat16", "f32": "float32"}[kind]
+        got = smoke.least(*smoke.stage(kernel, kind, n, lit_macs=macs))
+    else:
+        h, c = {"conv1": (55, 96), "conv2": (27, 256)}[tail]
+        x = torch.randn((n, h, h, c), generator=gen).to(dt)
+        b = torch.randn((c,), generator=gen).to(dt)
+        if kernel == "bias_relu_pool_lrn":
+            tensors = (x, b, fused_pool_lrn.bias_relu_pool_lrn_plain(x, b))
+            flops = work.k2_stage(smoke.bench_model(), n, tail,
+                                  smoke.PRECISION[kind])[1]
+        else:
+            ho = (h - 3) // 2 + 1
+            dy = torch.randn((n, ho, ho, c), generator=gen).to(dt)
+            tensors = (x, b, dy, *fused_pool_lrn
+                       .bias_relu_pool_lrn_backward_plain(x, b, dy))
+            flops = work.k2_backward_stage(smoke.bench_model(), n, tail,
+                                           smoke.PRECISION[kind])[1]
+        got = smoke.least(*smoke.stage(kernel, kind, n, tail))
+    nbytes = sum(t.nbytes for t in tensors)
+    if segs == 2:
+        assert smoke.stage(kernel, kind, n, tail, macs) == (
+            (nbytes, flops), peak)
+    p = work.peaks(H100)
+    by = ("bytes" if nbytes / p["hbm_bytes_per_s"]
+          >= flops / p[f"{peak}_flops"] else "operations")
+    assert got == (pytest.approx(work.least_s(nbytes, flops, H100, peak)
+                                 * 1e3, rel=1e-12), by)
 
 
 @pytest.fixture(scope="module")
@@ -357,7 +423,6 @@ def test_profile_engine_on_cpu():
 
 
 NO_GPU_CALLS = {
-    "bench_torch": lambda: bench_torch.main(["--batches", "1"]),
     "torch_e2e_bench": lambda: load_script("torch_e2e_bench").main([]),
     "torch_roofline": lambda: load_script("torch_roofline").main([]),
     "torch_profile_engine": lambda: load_script(
