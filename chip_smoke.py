@@ -20,7 +20,10 @@ Phases, each of which fails the run with a non-zero exit on any check:
      beside it;
      K2's backward kernel at the training batch of 64 and at 1 and 129,
      both tails, both dtypes, on random and on tie-heavy inputs, and a
-     CUDA graph of it replayed against its eager call;
+     CUDA graph of it replayed against its eager call; the endpoints
+     kernel bit for bit against its plain version and the host's numpy
+     at a batch and at a chunk of the engine's batches, timed beside the
+     host's numpy;
   3. run the InferenceEngine in both numeric modes: its CUDA graphs bit for
      bit against its eager step at 1, 128, 129, 17 x 128 + 5, chunk + 20
      batches and 8,192 specs, images/s graphed and eager, and 8,192 specs
@@ -89,8 +92,9 @@ Phases, each of which fails the run with a non-zero exit on any check:
      the CPU's own bf16-to-f32 departure), and dryrun_multichip(1).
 Launches count kernels executed: a graph replay adds the launches its
 capture held (svision_tpu_torch/graphs.py), and every run of phases 3-8
-holds them to launches per batch or step x the batches or steps run (in
-phase 9, the engine's runs; the others' are counted).
+holds them to launches per batch or step x the batches or steps run, and
+the endpoints kernel's per dispatch x the dispatches run (in phase 9, the
+engine's runs; the others' are counted).
 Then it prints one {"kernels": [...]} line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.
 `--report PATH` also writes the full report (every variant, the profile) as
@@ -309,11 +313,14 @@ def plain_kernels():
     engine or a step inside."""
     from svision_tpu_torch.infer import engine
     from svision_tpu_torch.models import alexnet, int8, train
-    from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, rasterize
+    from svision_tpu_torch.ops import (endpoints, fused_conv1, fused_pool_lrn,
+                                       rasterize)
     saved = (engine.conv1_fused_raster, engine.render_images,
-             engine.render_raster_kernel, alexnet.bias_relu_pool_lrn,
-             int8.bias_relu_pool_lrn, train.bias_relu_pool_lrn_autograd)
+             engine.render_raster_kernel, engine.specs_endpoints,
+             alexnet.bias_relu_pool_lrn, int8.bias_relu_pool_lrn,
+             train.bias_relu_pool_lrn_autograd)
     engine.conv1_fused_raster = fused_conv1.conv1_fused_raster_plain
+    engine.specs_endpoints = endpoints.specs_endpoints_plain
     engine.render_images = rasterize.render_images
     engine.render_raster_kernel = rasterize.render_raster
     alexnet.bias_relu_pool_lrn = fused_pool_lrn.bias_relu_pool_lrn_plain
@@ -323,8 +330,9 @@ def plain_kernels():
         yield
     finally:
         (engine.conv1_fused_raster, engine.render_images,
-         engine.render_raster_kernel, alexnet.bias_relu_pool_lrn,
-         int8.bias_relu_pool_lrn, train.bias_relu_pool_lrn_autograd) = saved
+         engine.render_raster_kernel, engine.specs_endpoints,
+         alexnet.bias_relu_pool_lrn, int8.bias_relu_pool_lrn,
+         train.bias_relu_pool_lrn_autograd) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +438,7 @@ def check_kernels(params, dense_k3) -> dict:
 
     out["bias_relu_pool_lrn"] = check_pool_lrn()
     out["bias_relu_pool_lrn_backward"] = check_pool_lrn_backward()
+    out["specs_endpoints"] = check_endpoints()
 
     # K3: f32 within 1e-4 of max|out|, bf16 within 1e-2 of max|out|
     w32 = torch.from_numpy(fold_conv1_params(params)["conv1/weights"]).to(dev)
@@ -479,6 +488,43 @@ def check_kernels(params, dense_k3) -> dict:
         log(f"K3 conv1_fused_raster {kind}: ok, {variants[-1]}")
     out["conv1_fused_raster"] = variants
     return out
+
+
+def check_endpoints() -> list:
+    """The endpoints kernel at a batch and at a chunk of the engine's
+    batches (random specs, the degenerate ones first): bit for bit against
+    its plain version on the card and against the host's numpy
+    (rasterize.specs_to_endpoints), timed against the bytes it moves (the
+    benchmark counts no such stage), beside its plain version and the
+    host's numpy on the host clock, the work it took off the host."""
+    import torch
+    from svision_tpu_torch.infer.engine import CHUNK
+    from svision_tpu_torch.ops import endpoints, rasterize
+    variants = []
+    for n in (CHUNK * B, B):         # the main path's chunk a card first
+        specs = random_specs(n, seed=5)
+        specs[:len(DEGENERATE)] = np.array(DEGENERATE, np.int64)
+        x = torch.from_numpy(specs).cuda()
+        got = endpoints.specs_endpoints(x)
+        plain = endpoints.specs_endpoints_plain(x)
+        host = rasterize.specs_to_endpoints(specs)
+        torch.cuda.synchronize()
+        for g, p, h in zip(got, plain, host):
+            assert torch.equal(g, p) and np.array_equal(g.cpu().numpy(), h), \
+                f"endpoints at {n} rows differ from the plain version"
+        b, by = least((sum(t.nbytes for t in (x, *got)), 0), "float32")
+        ms = time_ms(lambda: endpoints.specs_endpoints(x))
+        t0 = time.perf_counter()
+        for _ in range(20):
+            rasterize.specs_to_endpoints(specs)
+        variants.append(dict(
+            dtype="int64", rows=n, shape=list(x.shape), max_abs_err=0, ms=ms,
+            plain_ms=time_ms(lambda: endpoints.specs_endpoints_plain(x),
+                             reps=PLAIN_REPS),
+            host_numpy_ms=(time.perf_counter() - t0) / 20 * 1e3,
+            bound_ms=b, bound_by=by, bound_fraction=b / ms))
+        log(f"specs_endpoints at {n} rows: bit-exact, {variants[-1]}")
+    return variants
 
 
 def check_pool_lrn(cold_buffers: int = 4) -> list:
@@ -1035,14 +1081,17 @@ def _records(path: str):
 
 
 # launches per batch of each mode's device step, on each device of the
-# engine
+# engine; the endpoints kernel's are per dispatch (PER_DISPATCH)
 PER_BATCH = {
     "default": {"render_raster": 0, "bias_relu_pool_lrn": 2,
-                "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
+                "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
+                "specs_endpoints": 0},
     "exact": {"render_raster": 0, "bias_relu_pool_lrn": 2,
-              "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
+              "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
+              "specs_endpoints": 0},
     "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
-            "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
+            "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0,
+            "specs_endpoints": 0}}
 # phase 8's modes: engine arguments, and K1's dtype where it runs
 MODES = {
     "bf16_compare": (dict(raster="compare"), None),
@@ -1056,8 +1105,12 @@ MODES = {
 PER_BATCH.update({mode: {"render_raster": int(k1 is not None),
                          "bias_relu_pool_lrn": 2,
                          "bias_relu_pool_lrn_backward": 0,
-                         "conv1_fused_raster": 0}
+                         "conv1_fused_raster": 0, "specs_endpoints": 0}
                   for mode, (_, k1) in MODES.items()})
+# launches per dispatch of each mode, on each device of the engine: the
+# endpoints of the dispatch's rows, at the head of the replica's step
+PER_DISPATCH = {mode: {"specs_endpoints": int(mode != "cpu")}
+                for mode in PER_BATCH}
 
 
 def kernel_wrappers() -> dict:
@@ -1079,13 +1132,14 @@ def warmup_batches(cpu: bool = False) -> int:
 @contextlib.contextmanager
 def counted():
     """Count the block's kernel launches, every count set to 0 on entry,
-    and the batches the engine ran (each call's plan, graph replays and
-    eager steps alike), those of a warm-up apart from the real ones.
-    Yields a dict that holds "batches" and gets "launches" and "wall_s"
-    (host clock) on exit."""
+    and the batches and dispatches the engine ran (each call's plan, graph
+    replays and eager steps alike), those of a warm-up apart from the real
+    ones. Yields a dict that holds "batches" and "dispatches" and gets
+    "launches" and "wall_s" (host clock) on exit."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     wrappers = kernel_wrappers()
-    out = {"batches": {"warmup": 0, "real": 0}}
+    out = {"batches": {"warmup": 0, "real": 0},
+           "dispatches": {"warmup": 0, "real": 0}}
     warming = threading.local()
     predict, warmup = InferenceEngine._predict, InferenceEngine.warmup
 
@@ -1093,6 +1147,7 @@ def counted():
         kind = "warmup" if getattr(warming, "on", False) else "real"
         chunks, singles = self.plan(len(specs))
         out["batches"][kind] += sum(chunks) + singles
+        out["dispatches"][kind] += len(chunks) + singles
         return predict(self, specs, graphed)
 
     def flagged_warmup(self):
@@ -1118,12 +1173,14 @@ def counted():
 
 def hold_launches(name: str, mode: str, run: dict, warmups: int,
                   devices: int = 1) -> None:
-    """A run's launches equal launches per batch x batches x devices, with
-    `warmups` warm-up batches among the batches."""
-    b = run["batches"]
+    """A run's launches equal (launches per batch x batches + launches per
+    dispatch x dispatches) x devices, with `warmups` warm-up batches among
+    the batches."""
+    b, d = run["batches"], run["dispatches"]
     assert b["warmup"] == warmups and b["real"] >= 1, f"{name}: batches {b}"
-    want = {k: v * (b["warmup"] + b["real"]) * devices
-            for k, v in PER_BATCH[mode].items()}
+    want = {k: (v * (b["warmup"] + b["real"])
+                + PER_DISPATCH[mode].get(k, 0) * (d["warmup"] + d["real"]))
+            * devices for k, v in PER_BATCH[mode].items()}
     assert run["launches"] == want, \
         f"{name}: launches {run['launches']} != {want}"
 
@@ -1730,7 +1787,8 @@ def _per_step(k1: int, tails: int) -> dict:
     """Launches a step: K1 k1 times, K2 and its backward once per
     bias/ReLU/pool/LRN tail (two per conv stack)."""
     return {"render_raster": k1, "bias_relu_pool_lrn": tails,
-            "bias_relu_pool_lrn_backward": tails, "conv1_fused_raster": 0}
+            "bias_relu_pool_lrn_backward": tails, "conv1_fused_raster": 0,
+            "specs_endpoints": 0}
 
 
 # launches per step of each training run, and per batch of evaluate; the
@@ -1742,7 +1800,8 @@ PER_STEP = {
     "fit_device_s2d": _per_step(0, 2),
     "fit_mesh": _per_step(1, 2 * 4),
     "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
-                 "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0}}
+                 "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0,
+                 "specs_endpoints": 0}}
 
 
 def labeled(n: int, seed: int):
@@ -2501,8 +2560,10 @@ def check_tools(work: str) -> dict:
     with counted() as r:
         roof = torch_roofline.main(["--batch", str(B), "--exact"])
     assert all(x["cum_ms"] > 0 for x in roof["sections"]), roof["sections"]
-    # every inference kernel; no training
-    assert all((r["launches"][k] > 0) == (k != "bias_relu_pool_lrn_backward")
+    # every kernel of the step; no training, and no endpoints kernel: the
+    # step's prefixes take endpoints made on the host
+    assert all((r["launches"][k] > 0) == (
+        k not in ("bias_relu_pool_lrn_backward", "specs_endpoints"))
                for k in r["launches"]), r["launches"]
     out["roofline_exact"] = dict(roof, launches=r["launches"])
     seconds["roofline"] = time.perf_counter() - t0
@@ -2572,6 +2633,8 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
         ("conv1_fused_raster", "conv1_fused_raster",
          "svision_tpu_torch/csrc/conv1_raster.cu",
          "svision_tpu/ops/fused_conv1.py:155", "bf16", None),
+        ("specs_endpoints", "specs_endpoints",
+         "svision_tpu_torch/csrc/specs_endpoints.cu", None, "int64", None),
     )
     rows = []
     for row, name, src, replaces, dtype, tail in info:
@@ -2596,6 +2659,10 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
             variants=kernels[name], ptxas=build["ptxas"][src]))
         if name == "conv1_fused_raster":
             rows[-1]["hgmma_in_sass"] = build["k3_hgmma"]
+        if name == "specs_endpoints":
+            rows[-1]["note"] = (
+                "no TPU kernel: the JAX package makes the endpoints on the "
+                "host (svision_tpu/ops/rasterize.py:specs_to_endpoints)")
         if name == "bias_relu_pool_lrn_backward":
             rows[-1]["note"] = (
                 "the gradient of K2's function; the JAX package has no "

@@ -10,13 +10,13 @@ it enqueued every kernel.
 
 Launch counts. Each kernel wrapper (ops/raster_kernel.render_raster,
 ops/fused_pool_lrn.bias_relu_pool_lrn and bias_relu_pool_lrn_backward,
-ops/fused_conv1.conv1_fused_raster) ticks its `launches` counter in
-Python when it enqueues its kernel. A capture ticks it though nothing
-runs, and a replay runs the kernels without a tick. capture() takes back
-a capture's ticks and keeps how many launches of each wrapper the graph
-holds, and Graph.replay() adds them, so every counter keeps meaning
-"kernels executed". The engine reads them per call (its span engine.call,
-trace.py).
+ops/fused_conv1.conv1_fused_raster, ops/endpoints.specs_endpoints) ticks
+its `launches` counter in Python when it enqueues its kernel. A capture
+ticks it though nothing runs, and a replay runs the kernels without a
+tick. capture() takes back a capture's ticks and keeps how many launches
+of each wrapper the graph holds, and Graph.replay() adds them, so every
+counter keeps meaning "kernels executed". The engine reads them per call
+(its span engine.call, trace.py).
 
 Captures use capture_error_mode="thread_local": the engine's warm-up
 captures on a thread (warmup_async) while the caller's thread goes on, and
@@ -37,7 +37,8 @@ from typing import Callable, Dict, Hashable, Sequence, Tuple
 import torch
 
 from svision_tpu_torch import trace
-from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
+from svision_tpu_torch.ops import (endpoints, fused_conv1, fused_pool_lrn,
+                                   raster_kernel)
 
 # eager steps a trainer runs before it captures its step (Pieces)
 WARMUP_STEPS = 3
@@ -47,7 +48,7 @@ def kernel_wrappers() -> Tuple[Callable, ...]:
     """The hand-written kernels' wrappers, each with its `launches`."""
     return (raster_kernel.render_raster, fused_pool_lrn.bias_relu_pool_lrn,
             fused_pool_lrn.bias_relu_pool_lrn_backward,
-            fused_conv1.conv1_fused_raster)
+            fused_conv1.conv1_fused_raster, endpoints.specs_endpoints)
 
 
 class Graph:

@@ -32,7 +32,9 @@ A call is dispatched by the JAX engine's chunked plan (InferenceEngine.plan:
 `chunk` batches a dispatch, then a tail by the `tail` policy). On the card
 each dispatch shape (c batches, or one) is a CUDA graph per replica
 (graphs.py), captured once and replayed; on the CPU the same plan runs
-eagerly, batch by batch.
+eagerly, batch by batch. A dispatch ships its raw specs: each replica's
+step starts with their endpoints (ops/endpoints.py, a kernel on the card),
+so the host thread only lays the rows out.
 
 The region aggregation that follows prediction is host code and lives in
 infer/aggregate.py, so workers that run it never import torch.
@@ -54,6 +56,7 @@ from svision_tpu_torch.models.alexnet import (AlexNet, cast_params_bf16,
                                               fold_params_bf16)
 from svision_tpu_torch.models.int8 import AlexNetInt8, quantize_params_int8
 from svision_tpu_torch.ops import rasterize
+from svision_tpu_torch.ops.endpoints import FIELDS, specs_endpoints
 from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
 from svision_tpu_torch.ops.raster_kernel import render_images
 from svision_tpu_torch.ops.raster_kernel import render_raster as render_raster_kernel
@@ -111,9 +114,10 @@ class InferenceEngine:
     tail='pow2' as the smallest covering power of 2 batches.
 
     On the card each replica keeps one CUDA graph per dispatch shape (c
-    batches, or one) that reads static input buffers: a dispatch copies its
-    rows from pinned host memory into them, replays, and copies the static
-    outputs into the call's outputs before the next replay. warmup()
+    batches, or one) that reads a static input buffer of raw specs and
+    makes their endpoints first: a dispatch copies its rows from pinned
+    host memory into it, replays, and copies the static outputs into the
+    call's outputs before the next replay. warmup()
     captures the shapes a 'full' plan uses; a 'pow2' tail shape is
     captured when a plan first needs it. On the CPU the same plan runs
     eagerly, batch by batch. Either way the call synchronizes once per
@@ -279,11 +283,14 @@ class InferenceEngine:
         # soft[argmax] == max(soft): softmax is monotone
         return logits.argmax(dim=1), torch.softmax(logits, dim=1).amax(dim=1)
 
-    def _run(self, d: int, ep, vis, rev) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Replica d's step over each of its batches in ep's rows, eagerly
-        (or under a capture) -> (argmax, max softmax) over all rows."""
+    def _run(self, d: int, specs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Replica d's step over each of its batches in the rows of specs
+        (int64 [rows,12] on its device), eagerly (or under a capture): the
+        rows' endpoints in one launch, then _step a batch -> (argmax, max
+        softmax) over all rows."""
         model, w_s2d = self._replicas[d]
         sub = self.batch_size // len(self.devices)
+        ep, vis, rev = specs_endpoints(specs)
         preds, softs = [], []
         for i in range(0, ep.shape[0], sub):
             p, s = self._step(model, w_s2d, ep[i:i + sub], vis[i:i + sub],
@@ -293,20 +300,16 @@ class InferenceEngine:
         return torch.cat(preds), torch.cat(softs)
 
     def _graph(self, d: int, batches: int):
-        """Replica d's graph of `batches` batches and its static inputs,
-        captured at first need."""
+        """Replica d's graph of `batches` batches and its static input (the
+        raw specs), captured at first need."""
         key = (d, batches)
         if key not in self._graphs:
             dev = self.devices[d]
             rows = batches * (self.batch_size // len(self.devices))
             with trace.span("engine.capture") as sp:
                 sp.set(card=d, batches=batches)
-                inputs = (torch.zeros((rows, rasterize.SEGS, 4),
-                                      dtype=torch.int32, device=dev),
-                          torch.zeros((rows, rasterize.SEGS),
-                                      dtype=torch.bool, device=dev),
-                          torch.zeros((rows, rasterize.SEGS),
-                                      dtype=torch.bool, device=dev))
+                inputs = (torch.zeros((rows, FIELDS), dtype=torch.int64,
+                                      device=dev),)
                 self._graphs[key] = (inputs, graphs.capture(
                     lambda: self._run(d, *inputs), dev))
         return self._graphs[key]
@@ -321,25 +324,29 @@ class InferenceEngine:
             return self._predict(np.asarray(specs), graphed)
 
     def _host_rows(self, specs: np.ndarray, batches: int) -> List[torch.Tensor]:
-        """One dispatch's endpoints (ep, vis, rev) on the host, device d's
-        batch of every round contiguous in [d]; pinned for the card."""
+        """One dispatch's raw specs, int64 [devices, batches x rows a
+        replica, 12], device d's batch of every round contiguous in [d];
+        pinned for the card. A list of the tensors a dispatch copies."""
         nd = len(self.devices)
         sub = self.batch_size // nd
-        host = [torch.from_numpy(np.ascontiguousarray(
-                    a.reshape(batches, nd, sub, *a.shape[1:]).swapaxes(0, 1)
-                    .reshape(nd, batches * sub, *a.shape[1:])))
-                for a in rasterize.specs_to_endpoints(specs)]
-        if self.device.type == "cuda":
-            host = [t.pin_memory() for t in host]
-        return host
+        rows = np.asarray(specs, np.int64).reshape(
+            batches, nd, sub, FIELDS).swapaxes(0, 1)
+        # one numpy copy, straight into the pinned buffer: torch's copy
+        # (Tensor.pin_memory) splits one of more than 32,768 values over
+        # its thread pool, which took milliseconds a dispatch on a busy host
+        host = torch.empty((nd, batches * sub, FIELDS), dtype=torch.int64,
+                           pin_memory=self.device.type == "cuda")
+        host.numpy().reshape(rows.shape)[...] = rows
+        return [host]
 
     def _predict(self, specs: np.ndarray, graphed: bool
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """specs through plan(N): replays of each replica's graphs when
-        graphed, else the eager step. Each dispatch's endpoints are made on
-        the host while the device runs the one before. Traced as the span
-        engine.call (trace.py), with the rows, the padded rows, the
-        dispatches, the grouped layers the network runs split
+        graphed, else the eager step. Each dispatch's specs are laid out
+        and pinned on the host while the device runs the one before; their
+        endpoints are made on the device, at the head of its step. Traced
+        as the span engine.call (trace.py), with the rows, the padded rows,
+        the dispatches, the grouped layers the network runs split
         (AlexNet.split_groups) and each kernel wrapper's launches during
         the call."""
         n = specs.shape[0]

@@ -51,6 +51,7 @@ ENTRIES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_conv1_fused_raster": ("conv1_raster.cu",
                                [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "svt_specs_endpoints": ("specs_endpoints.cu", [_P, _P, _P, _P, _I, _P]),
 }
 SOURCES = tuple(sorted({src for src, _ in ENTRIES.values()}))
 

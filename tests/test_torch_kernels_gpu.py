@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from svision_tpu_torch.models.alexnet import fold_conv1_params, init_params
-from svision_tpu_torch.ops import fused_conv1, fused_pool_lrn, raster_kernel
+from svision_tpu_torch.ops import (endpoints, fused_conv1, fused_pool_lrn,
+                                   raster_kernel)
 from svision_tpu_torch.ops import rasterize
 
 pytestmark = pytest.mark.gpu
@@ -393,6 +394,72 @@ def test_conv1_kernel(cuda, dtype, tol, case):
         assert got.count_nonzero().item() == 0
 
 
+def _wild_specs(n, seed):
+    """The genome mix's specs (benchmark/traffic.py) with SPECS first and
+    every third row wild: ends far outside the canvas on every side,
+    lengths down to -5 (zero-length and reversed segments), strand fields
+    0, 1 and 2, read and ref lengths under and over 227; many of their
+    segments are clipped or wholly invisible."""
+    from benchmark.traffic import random_specs
+    rng = np.random.RandomState(seed)
+    specs = random_specs(n, rng)
+    wild = np.arange(n) % 3 == 0
+    w = int(wild.sum())
+    for k in (0, 5):
+        specs[wild, k] = rng.randint(-900, 1400, w)
+    for k in (2, 7):
+        specs[wild, k] = rng.randint(-900, 1400, w)
+        specs[wild, k + 1] = specs[wild, k] + rng.randint(-5, 700, w)
+    specs[wild, 4] = rng.randint(0, 3, w)
+    specs[wild, 9] = rng.randint(0, 3, w)
+    specs[wild, 10] = rng.randint(50, 2000, w)
+    specs[wild, 11] = rng.randint(50, 2000, w)
+    k = min(n, len(SPECS))
+    specs[:k] = SPECS[:k]
+    return torch.from_numpy(specs)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 4096, 4099])
+def test_specs_endpoints_kernel_bit_exact(cuda, n):
+    """The endpoints kernel against its plain version (held to the host's
+    numpy by tests/test_torch_endpoints.py), bit for bit in all three
+    outputs, invisible segments' endpoints included; one launch a call.
+    The plain version run on the card (as chip_smoke's all-plain engines
+    run it) gives the same bits."""
+    specs = _wild_specs(n, seed=n)
+    before = endpoints.specs_endpoints.launches
+    got = endpoints.specs_endpoints(specs.to(cuda))
+    assert endpoints.specs_endpoints.launches == before + 1
+    want = endpoints.specs_endpoints_plain(specs)
+    on_card = endpoints.specs_endpoints_plain(specs.to(cuda))
+    for g, w, c in zip(got, want, on_card):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        assert torch.equal(c, g)
+    if n >= 127:
+        assert not want[1].all() and want[1].any()
+
+
+def test_specs_endpoints_kernel_in_a_graph(cuda):
+    """Captured in a CUDA graph over a static buffer of 4,096 specs, as
+    the engine holds it: each replay makes the endpoints of the rows
+    copied in before it, three sets in turn; each replay counts one
+    launch."""
+    from svision_tpu_torch import graphs
+    static = torch.zeros((4096, 12), dtype=torch.int64, device=cuda)
+    with torch.inference_mode():
+        endpoints.specs_endpoints(static)
+        g = graphs.capture(lambda: endpoints.specs_endpoints(static), cuda)
+    assert g.launches == ((endpoints.specs_endpoints, 1),)
+    before = endpoints.specs_endpoints.launches
+    for seed in (1, 2, 3):
+        specs = _wild_specs(4096, seed=seed)
+        static.copy_(specs.to(cuda))
+        got = g.replay()
+        for a, w in zip(got, endpoints.specs_endpoints_plain(specs)):
+            assert torch.equal(a.cpu(), w)
+    assert endpoints.specs_endpoints.launches == before + 3
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     ep, vis, rev = _segments(cuda)
     with pytest.raises(ValueError):
@@ -400,6 +467,12 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fused_conv1.conv1_fused_raster(ep, vis, rev,
                                        torch.zeros((3, 3, 48, 95), device=cuda))
+    # the endpoints kernel takes contiguous int64 [N,12] specs alone
+    specs = torch.zeros((4, 12), dtype=torch.int64, device=cuda)
+    for bad in (specs.int(), specs.double(), specs[:, :11],
+                torch.zeros((12, 4), dtype=torch.int64, device=cuda).t()):
+        with pytest.raises(ValueError):
+            endpoints.specs_endpoints(bad)
     # K2 copies nothing: a non-contiguous x and one off 16-byte alignment
     # (a 1-element-offset view) are refused
     b = torch.zeros((96,), dtype=torch.bfloat16, device=cuda)
@@ -466,11 +539,29 @@ def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
         assert not torch.equal(v.detach(), start[k]), f"{k}: not updated"
 
 
-# launches per batch of each engine mode's step
+# launches per batch of each engine mode's step; the endpoints kernel runs
+# once a dispatch (_dispatches)
 PER_BATCH = {True: {"render_raster": 0, "bias_relu_pool_lrn": 2,
-                    "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1},
+                    "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
+                    "specs_endpoints": 0},
              False: {"render_raster": 0, "bias_relu_pool_lrn": 2,
-                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1}}
+                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
+                     "specs_endpoints": 0}}
+
+
+def _dispatches(eng, n):
+    """The dispatches of a call of n specs: one endpoints launch each, on
+    each card."""
+    chunks, singles = eng.plan(n)
+    return len(chunks) + singles
+
+
+def _warmup_runs(eng):
+    """(batches, dispatches) of warmup() on the card: the eager sentinel
+    batch, the single-batch graph's replay and, under tail 'full', the
+    full-chunk graph's."""
+    full = eng.tail == "full" and eng.chunk > 1
+    return 2 + (eng.chunk if full else 0), 2 + full
 
 
 def _launches():
@@ -483,13 +574,14 @@ def test_engine_graphs_equal_eager(cuda, bf16):
     """The engine's graph replays against its eager step on the card, bit
     for bit, at n = 1, 128, 129, a short tail (17 x 128 + 5), a long one
     (chunk + 20 batches) and 8,192; every kernel counter equals launches
-    per batch x the batches run, captures excluded and replays counted."""
+    per batch x the batches run, and the endpoints kernel's the dispatches
+    run, captures excluded and replays counted."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     from bench import random_specs
     eng = InferenceEngine(init_params(0), bf16=bf16)
     start = _launches()
     eng.warmup()
-    batches = 2 + (eng.chunk if eng.tail == "full" and eng.chunk > 1 else 0)
+    batches, dispatches = _warmup_runs(eng)
     for n in (1, 128, 129, 17 * 128 + 5, (eng.chunk + 20) * 128, 8192):
         specs = random_specs(n, seed=n)
         p, s = eng.predict_specs(specs)
@@ -497,9 +589,11 @@ def test_engine_graphs_equal_eager(cuda, bf16):
             ep, es = eng._predict(specs, graphed=False)
         chunks, singles = eng.plan(n)
         batches += 2 * (sum(chunks) + singles)
+        dispatches += 2 * _dispatches(eng, n)
         assert np.array_equal(p, ep) and np.array_equal(s, es), n
     got = {k: v - start[k] for k, v in _launches().items()}
-    assert got == {k: v * batches for k, v in PER_BATCH[bf16].items()}
+    assert got == {**{k: v * batches for k, v in PER_BATCH[bf16].items()},
+                   "specs_endpoints": dispatches}
 
 
 def _f64_max_softmax(seg, monkeypatch):
@@ -528,7 +622,8 @@ def _f64_max_softmax(seg, monkeypatch):
 def test_exact_engine_runs_the_fused_route(cuda, monkeypatch):
     """The exact engine on the card takes the fused route: its replica is
     the folded f32 network with conv1's weights kept for K3; engine.call's
-    launches a batch are K1 0, K3 1 and K2 2, with split_groups 0; its
+    launches a batch are K1 0, K3 1 and K2 2, and the endpoints kernel's
+    one a dispatch, with split_groups 0; its
     graph replays give the eager step's answers bit for bit. On 8,192
     random specs it agrees with the CPU exact engine (the unfolded
     network) on every argmax, and its max softmax lies within 1e-4 of the
@@ -552,8 +647,9 @@ def test_exact_engine_runs_the_fused_route(cuda, monkeypatch):
     (call,) = rec.find("engine.call")
     batches = call.attrs["padded_rows"] // eng.batch_size
     assert call.attrs["split_groups"] == 0
-    assert call.attrs["launches"] == {k: v * batches
-                                      for k, v in PER_BATCH[False].items()}
+    assert call.attrs["launches"] == {
+        **{k: v * batches for k, v in PER_BATCH[False].items()},
+        "specs_endpoints": call.attrs["dispatches"]}
     with torch.inference_mode():
         ep, es = eng._predict(specs, graphed=False)
     assert np.array_equal(p, ep) and np.array_equal(s, es)
@@ -600,15 +696,16 @@ def test_mesh_engine_equals_one_card(cuda, bf16):
     assert all(s.attrs["rows"] == 1024 for s in chunks)
 
 
-# the engine's other modes (engine arguments), and their launches per batch
+# the engine's other modes (engine arguments), their launches per batch
+# (K1, K2, K3) and the endpoints kernel's per dispatch
 MODES = {
-    "bf16-compare": (dict(raster="compare"), (0, 2, 0)),
-    "bf16-einsum": (dict(raster="einsum"), (0, 2, 0)),
-    "bf16-pallas": (dict(raster="pallas"), (1, 2, 0)),
-    "int8-compare": (dict(int8=True), (0, 2, 0)),
-    "int8-einsum": (dict(int8=True, raster="einsum"), (0, 2, 0)),
-    "int8-pallas": (dict(int8=True, raster="pallas"), (1, 2, 0)),
-    "unfolded-bf16": (dict(fast=False), (1, 2, 0)),
+    "bf16-compare": (dict(raster="compare"), (0, 2, 0), 1),
+    "bf16-einsum": (dict(raster="einsum"), (0, 2, 0), 1),
+    "bf16-pallas": (dict(raster="pallas"), (1, 2, 0), 1),
+    "int8-compare": (dict(int8=True), (0, 2, 0), 1),
+    "int8-einsum": (dict(int8=True, raster="einsum"), (0, 2, 0), 1),
+    "int8-pallas": (dict(int8=True, raster="pallas"), (1, 2, 0), 1),
+    "unfolded-bf16": (dict(fast=False), (1, 2, 0), 1),
 }
 
 
@@ -617,15 +714,15 @@ def test_engine_mode_graphs_equal_eager(cuda, mode):
     """test_engine_graphs_equal_eager for each of the engine's other modes
     (raster kinds, int8, the unfolded bf16 network): replays bit-equal to
     the eager step at n = 1, 129 and chunk + 20 batches, launches per
-    batch x batches."""
+    batch x batches and per dispatch x dispatches."""
     from svision_tpu_torch.infer.engine import InferenceEngine
     from bench import random_specs
-    kw, per_batch = MODES[mode]
+    kw, per_batch, per_dispatch = MODES[mode]
     eng = InferenceEngine(init_params(0), **kw)
     assert eng.raster == kw.get("raster", "compare" if eng.int8 else "s2d")
     start = _launches()
     eng.warmup()
-    batches = 2 + (eng.chunk if eng.tail == "full" and eng.chunk > 1 else 0)
+    batches, dispatches = _warmup_runs(eng)
     for n in (1, 129, (eng.chunk + 20) * 128):
         specs = random_specs(n, seed=n)
         p, s = eng.predict_specs(specs)
@@ -633,10 +730,12 @@ def test_engine_mode_graphs_equal_eager(cuda, mode):
             ep, es = eng._predict(specs, graphed=False)
         chunks, singles = eng.plan(n)
         batches += 2 * (sum(chunks) + singles)
+        dispatches += 2 * _dispatches(eng, n)
         assert np.array_equal(p, ep) and np.array_equal(s, es), n
     got = {k: v - start[k] for k, v in _launches().items()}
     names = ("render_raster", "bias_relu_pool_lrn", "conv1_fused_raster")
     assert got == {"bias_relu_pool_lrn_backward": 0,
+                   "specs_endpoints": per_dispatch * dispatches,
                    **{k: v * batches for k, v in zip(names, per_batch)}}
 
 
@@ -763,7 +862,8 @@ def test_device_step_graph_equals_eager(cuda, s2d):
     steps = 2 + graphs.WARMUP_STEPS
     assert {k: v - before[k] for k, v in _launches().items()} == {
         "render_raster": 0 if s2d else steps, "bias_relu_pool_lrn": 2 * steps,
-        "bias_relu_pool_lrn_backward": 2 * steps, "conv1_fused_raster": 0}
+        "bias_relu_pool_lrn_backward": 2 * steps, "conv1_fused_raster": 0,
+        "specs_endpoints": 0}
     assert abs(got - want) <= 1e-6 * abs(want)
     for (k, p), q in zip(model.named_parameters(), twin.parameters()):
         assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k

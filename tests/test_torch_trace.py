@@ -332,8 +332,9 @@ def test_device_spans_past_the_pool(cuda, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [True, False])
 def test_call_launches_equal_the_plan(cuda, params, bf16):
-    """engine.call's launch deltas: in bf16 K3 once and K2 twice a batch a
-    card; in f32 K1 once and K2 twice."""
+    """engine.call's launch deltas: K3 once and K2 twice a batch a card
+    (the exact engine on the card takes the fused route too), and the
+    endpoints kernel once a dispatch a card."""
     eng = InferenceEngine(params, bf16=bf16)
     eng.warmup()
     n = 11 * 128 + 5
@@ -342,9 +343,11 @@ def test_call_launches_equal_the_plan(cuda, params, bf16):
     (call,) = rec.find("engine.call")
     chunks, singles = eng.plan(n)
     batches = (sum(chunks) + singles) * len(eng.devices)
-    first = "conv1_fused_raster" if bf16 else "render_raster"
     want = {w.__name__: 0 for w in graphs.kernel_wrappers()}
-    want.update({first: batches, "bias_relu_pool_lrn": 2 * batches})
+    want.update({"conv1_fused_raster": batches,
+                 "bias_relu_pool_lrn": 2 * batches,
+                 "specs_endpoints": (len(chunks) + singles)
+                 * len(eng.devices)})
     assert call.attrs["launches"] == want
     assert call.attrs["dispatches"] == len(chunks) + singles
 
