@@ -25,10 +25,10 @@ NAME_CHARS = 120
 
 
 def _on_device(e) -> bool:
-    """A profiler event that is a kernel, copy or set on a card (a copy of
-    svision_tpu_torch.timing.on_device's rule: torch's elementwise and copy
-    kernels hold "{lambda(" in their names, a user annotation does not
-    count)."""
+    """A profiler event that is a kernel, copy or set on a card, by the
+    benchmark's own rule, which the port's tools read through profile():
+    torch's elementwise and copy kernels hold "{lambda(" in their names, a
+    user annotation does not count."""
     return (str(e.device_type).endswith("CUDA")
             and not getattr(e, "is_user_annotation", False)
             and ("#" not in e.key or "{lambda(" in e.key))

@@ -1,7 +1,7 @@
 """Driver: the inference engine, InferenceEngine.predict_specs, over a
 'calls' mix, as cli.run_pipeline drives it: one caller, one call a
-chromosome, in order, each call's endpoints made on the host in the
-timed path.
+chromosome, in order, each call's specs laid out and pinned on the host
+and their endpoints made on the cards in the timed path.
 
 set-up   the specs, the weights from the seed, the engine as the
          configuration builds it (one replica a card), its warm-up (the
@@ -9,7 +9,8 @@ set-up   the specs, the weights from the seed, the engine as the
          call of the largest size, so that every allocation is made.
 window   whole calls from the first chromosome on, round the genome,
          until the first call that ends after `seconds`.
-slice    the mix's first `trace_calls` calls, for the profiler.
+slice    the mix's first `trace_calls` calls, for the span recorder
+         and for the profiler.
 check    a sample of the window's answers, drawn from the seed, against
          the reference (readings()).
 """
@@ -67,8 +68,9 @@ class Driver:
 
     @property
     def rows_per_launch(self) -> int:
-        """Rows each card's kernels take a launch (a batch's share)."""
-        return self.engine_cfg["batch_size"] // len(self.devices)
+        """Rows each card's kernels take a launch: the engine's own batch
+        over its replicas (whole batches a replica on a mesh)."""
+        return self.engine.batch_size // len(self.engine.devices)
 
     def setup(self) -> None:
         from svision_tpu_torch.infer.engine import InferenceEngine

@@ -1,7 +1,7 @@
-"""The engine's host rate of endpoints, in rows/s (the program's own spans,
+"""The engine's host rate of rows, in rows/s (the program's own spans,
 benchmark/spans.py): the rows of the engine.host_rows spans (a dispatch's
-specs to endpoints, laid out a card each and pinned) over their summed
-time."""
+raw specs laid out a card each and pinned; the cards make the endpoints)
+over their summed time."""
 
 from benchmark import spans
 

@@ -16,14 +16,20 @@ from benchmark import work
 KERNELS = ("conv1_raster_wgmma",)
 
 
-def read(ctx):
+def share(ctx, kernels, dtype: str):
+    """The roofline share of K3's launches named by `kernels`, whose
+    tensors are of `dtype` and whose FLOPs run against its peak."""
     if ctx.trace is None:
         return None
-    n, t = ctx.trace.kernel_time(KERNELS)
+    n, t = ctx.trace.kernel_time(kernels)
     if not n:
         return None
     model = ctx.config["model"]
-    nbytes, _ = work.k3_stage(model, ctx.driver.rows_per_launch, "bfloat16", 0)
+    nbytes, _ = work.k3_stage(model, ctx.driver.rows_per_launch, dtype, 0)
     flops = 2 * ctx.driver.slice_lit_macs() / n
-    least = n * work.least_s(nbytes, flops, ctx.device_name, "bfloat16")
+    least = n * work.least_s(nbytes, flops, ctx.device_name, dtype)
     return 100.0 * least / t
+
+
+def read(ctx):
+    return share(ctx, KERNELS, "bfloat16")

@@ -5,14 +5,16 @@
 
 from the root of a checkout. It makes the cell's inputs and weights from
 the seed, sets the program up and warms it (set-up), measures a window of
-`--seconds` of the cell's traffic, reads the device memory peak, and with
---trace 1 profiles a further slice of the same work. Then it frees the
-program, holds a sample of what the window produced to the plain
-reference (benchmark/reference) and prints, as the last line of standard
-output, one JSON object: correct, attempted, failed, metrics (the cell's
-end-to-end metrics, or with --trace 1 its per-layer ones), device, with
---trace 1 the breakdown, and last the numbers compared, each beside its
-limit (also the last lines of standard error).
+`--seconds` of the cell's traffic, with --trace 1 takes further slices of
+the same work (one with the program's span recorder on, when a metric of
+the cell reads spans, then one under the profiler), and reads the device
+memory peak. Then it frees the program, holds a sample of what the
+window produced to the plain reference (benchmark/reference) and prints,
+as the last line of standard output, one JSON object: correct,
+attempted, failed, metrics (the cell's end-to-end metrics, or with
+--trace 1 its per-layer ones), device, with --trace 1 the breakdown, and
+last the numbers compared, each beside its limit (also the last lines of
+standard error).
 
 It exits non-zero and prints no result when the machine has fewer cards
 than the cell asks for, when the program is not in the checkout, or when
@@ -62,6 +64,19 @@ def cache_dirs() -> None:
         os.environ[var] = os.path.join(BUILD, sub)
 
 
+def slices(driver, entries) -> dict:
+    """A traced run's further slices of the driver's work, as ctx keys:
+    first, where one of `entries` reads the program's spans, a slice with
+    its recorder on and the profiler off, so that the spans carry none of
+    the profiler's cost; then the profiled slice."""
+    from benchmark import devtrace, spans
+    got = {}
+    if any(m["source"] == "program_span" for m in entries):
+        got["spans"] = spans.take(driver)
+    got["trace"] = devtrace.profile(driver.slice, driver.devices)
+    return got
+
+
 def parse(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -75,7 +90,7 @@ def main(argv=None) -> int:
     args = parse(argv)
     cache_dirs()
     import importlib.util
-    from benchmark import devtrace, spec
+    from benchmark import spec
     try:
         bench = spec.load()
         cell = spec.workload(bench, args.workload)
@@ -104,13 +119,14 @@ def main(argv=None) -> int:
     setup_s = time.perf_counter() - T_START
 
     window = driver.window(args.seconds)
-    trace = (devtrace.profile(driver.slice, devices) if args.trace else None)
+    traced = slices(driver, entries) if args.trace else {"trace": None}
+    trace = traced["trace"]
     peak = max(torch.cuda.max_memory_allocated(d) for d in devices)
     name = torch.cuda.get_device_name(devices[0])
     ctx = types.SimpleNamespace(
         cell=cell, config=cfg, mix=mix, seed=args.seed, window=window,
-        setup_s=setup_s, trace=trace, driver=driver, device_name=name,
-        chips=chips)
+        setup_s=setup_s, driver=driver, device_name=name, chips=chips,
+        **traced)
     metrics = {}
     for m in entries:
         value = readers[m["name"]].read(ctx)

@@ -1,13 +1,14 @@
 """The program's own spans in a traced run, for the metrics whose source
 is `program_span`.
 
-The first such metric a --trace 1 run reads calls record(ctx). It runs
-the driver's slice() once more, after the profiled slice, with the
-program's recorder (svision_tpu_torch/trace.py) on and the profiler off;
-the recorder synchronizes every card at its start and at its end, and its
-window lies between the two. The record is kept on ctx for the other
-readers. An untraced run (ctx.trace None), or a program without the
-recorder, gives None, and each reader then returns None.
+A --trace 1 run whose cell reads such a metric calls take(driver) before
+its profiled slice (run.slices): it runs the driver's slice() once with
+the program's recorder (svision_tpu_torch/trace.py) on and the profiler
+off, so that the spans carry none of the profiler's cost; the recorder
+synchronizes every card at its start and at its end, and its window lies
+between the two. The record is kept on ctx, where record(ctx) finds it
+for every reader. An untraced run (ctx.trace None), or a program without
+the recorder, gives None, and each reader then returns None.
 
 The readers below take the program's record (trace.Record): its `spans`
 (each with name, id, parent, call, device, start_ns, end_ns, attrs),
@@ -26,16 +27,15 @@ from benchmark.devtrace import union
 
 
 def record(ctx):
-    """The program's span record of one more slice, made once a run; None
-    untraced or when the program records no spans."""
-    if ctx.trace is None:
-        return None
-    if not hasattr(ctx, "spans"):
-        ctx.spans = _record(ctx.driver)
-    return ctx.spans
+    """The program's span record that a --trace 1 run took before its
+    profiled slice; None untraced or when the program records no spans."""
+    return None if ctx.trace is None else getattr(ctx, "spans", None)
 
 
-def _record(driver):
+def take(driver):
+    """The program's span record of one more slice of the driver's work,
+    the recorder on and the profiler off; None when the program has no
+    recorder."""
     try:
         from svision_tpu_torch import trace
     except ImportError:
@@ -101,8 +101,9 @@ def host_busy_pct(rec) -> Optional[float]:
 
 
 def host_rows_per_s(rec) -> Optional[float]:
-    """The rows of the engine.host_rows spans (a dispatch's endpoints, made
-    on the host, pinned) over those spans' summed time."""
+    """The rows of the engine.host_rows spans (a dispatch's raw specs laid
+    out a card and pinned; the cards make the endpoints) over those spans'
+    summed time."""
     rows = rec.find("engine.host_rows", device=False)
     ns = sum(s.end_ns - s.start_ns for s in rows)
     if not ns:

@@ -122,14 +122,14 @@ def test_a_program_without_the_recorder_gives_none(monkeypatch):
     monkeypatch.delattr(svision_tpu_torch, "trace", raising=False)
     calls = []
     driver = types.SimpleNamespace(devices=[], slice=lambda: calls.append(1))
-    ctx = types.SimpleNamespace(trace=object(), driver=driver)
+    ctx = types.SimpleNamespace(trace=object(), spans=spans.take(driver))
     for name in NAMES:
         assert spec.metric(name).read(ctx) is None
     assert ctx.spans is None and not calls
 
 
 def test_record_of_a_cpu_slice():
-    """record() runs the driver's slice once with the recorder on and keeps
+    """take() runs the driver's slice once with the recorder on and gives
     the record: the engine's host spans are there, device spans are not
     (the CPU has none), so the host metrics read and the device ones give
     None."""
@@ -147,7 +147,7 @@ def test_record_of_a_cpu_slice():
             eng.predict_specs(specs)
     driver = types.SimpleNamespace(devices=[torch.device("cpu")],
                                    slice=slice_)
-    ctx = types.SimpleNamespace(trace=object(), driver=driver)
+    ctx = types.SimpleNamespace(trace=object(), spans=spans.take(driver))
     got = {n: spec.metric(n).read(ctx) for n in NAMES}
     assert runs == [1]
     rec = ctx.spans
