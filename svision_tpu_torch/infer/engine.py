@@ -36,6 +36,13 @@ eagerly, batch by batch. A dispatch ships its raw specs: each replica's
 step starts with their endpoints (ops/endpoints.py, a kernel on the card),
 so the host thread only lays the rows out.
 
+The network is read from the weights: AlexNet's leaves build the routes
+above, a ViT's (models/vit.py, whose leaves start with vit/) build a
+replica that renders K1's raster in the compute dtype (the kernel on the
+card, its plain version on the CPU) into the ViT, in bf16 or, under
+bf16=False, in f32 with TF32 off. The other modes are AlexNet's: int8,
+fast=False and the rasters other than 's2d' raise for ViT weights.
+
 The region aggregation that follows prediction is host code and lives in
 infer/aggregate.py, so workers that run it never import torch.
 """
@@ -55,6 +62,7 @@ from svision_tpu_torch.models.alexnet import (AlexNet, cast_params_bf16,
                                               fold_conv1_params,
                                               fold_params_bf16)
 from svision_tpu_torch.models.int8 import AlexNetInt8, quantize_params_int8
+from svision_tpu_torch.models import vit
 from svision_tpu_torch.ops import rasterize
 from svision_tpu_torch.ops.endpoints import FIELDS, specs_endpoints
 from svision_tpu_torch.ops.fused_conv1 import conv1_fused_raster
@@ -138,7 +146,8 @@ class InferenceEngine:
 
     bf16, fast, raster and int8 select the numeric mode as the JAX engine's
     arguments do (module docstring); int8, fast, raster and compute_dtype
-    (torch.int8, bfloat16 or float32) say which one it runs."""
+    (torch.int8, bfloat16 or float32) say which one it runs. network
+    ('alexnet' or 'vit_b16') says which network the weights hold."""
 
     _SENTINEL = np.array([[0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2]],
                          dtype=np.int64)   # create_batch.py:55
@@ -151,6 +160,12 @@ class InferenceEngine:
                  raster: str = "s2d", int8: bool = False):
         if raster not in RASTERS:
             raise ValueError(f"raster {raster!r} is not one of {RASTERS}")
+        self.network = "vit_b16" if vit.is_vit(params) else "alexnet"
+        if self.network == "vit_b16" and (int8 or not fast or raster != "s2d"):
+            raise ValueError(
+                "int8, fast=False and raster other than 's2d' are AlexNet's "
+                f"modes; these are ViT weights (int8={int8}, fast={fast}, "
+                f"raster={raster!r})")
         self.devices = tuple(resolve_device(d)
                              for d in (devices if devices else (device,)))
         self.device = self.devices[0]
@@ -183,8 +198,14 @@ class InferenceEngine:
         alone: the fused kernel into the folded network (fused_logits) for
         the fast path with raster 's2d', and for the exact engine on the
         card; the exact engine on any other device keeps the unfolded
-        network on K1's images, the JAX package's --exact form."""
+        network on K1's images, the JAX package's --exact form. ViT
+        weights build the ViT with its normalisation folded in
+        (vit.fold_params), in the compute dtype, on K1's raster."""
         host = {k: np.asarray(v) for k, v in params.items()}
+        if self.network == "vit_b16":
+            host = vit.cast_params(vit.fold_params(host), self.compute_dtype)
+            return [(vit.VisionTransformer.from_params(host, device=dev), None)
+                    for dev in self.devices]
         fused = (self.raster == "s2d" if self.fast
                  else not self.bf16 and device_type == "cuda")
         if self.int8:
@@ -266,8 +287,11 @@ class InferenceEngine:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One replica's batch (batch_size // devices rows) on its device ->
         (argmax, max softmax). A replica that keeps w_s2d (_replicas_for)
-        runs the fused route."""
-        if w_s2d is not None:
+        runs the fused route; a ViT replica reads K1's raster."""
+        if self.network == "vit_b16":
+            logits = model(render_raster_kernel(ep, vis, rev,
+                                                dtype=model.compute_dtype))
+        elif w_s2d is not None:
             logits = fused_logits(model, w_s2d, ep, vis, rev)
         elif not self.fast:
             logits = model(render_images(ep, vis, rev, dtype=torch.float32))
@@ -307,7 +331,7 @@ class InferenceEngine:
             dev = self.devices[d]
             rows = batches * (self.batch_size // len(self.devices))
             with trace.span("engine.capture") as sp:
-                sp.set(card=d, batches=batches)
+                sp.set(card=d, batches=batches, network=self.network)
                 inputs = (torch.zeros((rows, FIELDS), dtype=torch.int64,
                                       device=dev),)
                 self._graphs[key] = (inputs, graphs.capture(
@@ -346,9 +370,10 @@ class InferenceEngine:
         and pinned on the host while the device runs the one before; their
         endpoints are made on the device, at the head of its step. Traced
         as the span engine.call (trace.py), with the rows, the padded rows,
-        the dispatches, the grouped layers the network runs split
-        (AlexNet.split_groups) and each kernel wrapper's launches during
-        the call."""
+        the dispatches, the network, a ViT's tokens (padded rows x tokens
+        an image), the grouped layers the network runs split
+        (AlexNet.split_groups; none in a ViT) and each kernel wrapper's
+        launches during the call."""
         n = specs.shape[0]
         if n == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
@@ -360,9 +385,12 @@ class InferenceEngine:
             out = self._dispatch(specs, sizes, graphed)
             if call:
                 total = sum(sizes) * self.batch_size
+                model = self._replicas[0][0]
+                if self.network == "vit_b16":
+                    call.set(tokens=total * model.tokens)
                 call.set(rows=n, padded_rows=total, dispatches=len(sizes),
-                         graphed=graphed,
-                         split_groups=self._replicas[0][0].split_groups,
+                         graphed=graphed, network=self.network,
+                         split_groups=model.split_groups,
                          launches={
                              w.__name__: w.launches - b
                              for w, b in zip(wrappers, before)})

@@ -667,6 +667,68 @@ def test_exact_engine_runs_the_fused_route(cuda, monkeypatch):
 
 
 
+# the ViT's bounds against the f32 reference on 1,024 rows: bf16 at the
+# cell's limits (benchmark/limits/vit-b16.genome.json); f32 at f32's
+# rounding, which the fitted weights scale up with the images' spread of
+# features to logits of std 2 (6e-4 in max softmax, 1.8e-4 in argmax_gap
+# on the card)
+VIT_F32_BOUNDS = {"argmax_gap": 0.005, "softmax_err": 0.005,
+                  "softmax_err_mean": 0.001}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_vit_engine_at_published_widths(cuda, bf16):
+    """ViT-B/16 at its published widths, with the benchmark's fitted
+    weights of one seed, through the engine: its graph replays give the
+    eager step's answers bit for bit (n = 1, 129, a short tail and 8,192);
+    engine.call says network vit_b16 and tokens = padded rows x 197, and
+    launches K1 once a batch and the endpoints kernel once a dispatch; on
+    1,024 rows its answers lie within the bounds above of
+    tests/reference_vit.py's, computed in f32 (TF32 off) on the card from
+    the raster benchmark/reference/raster.py draws."""
+    from benchmark import spec
+    from benchmark.drivers import engine as bench_engine
+    from benchmark.drivers import engine_vit
+    from benchmark.reference import raster as ref_raster
+    from bench import random_specs
+    from svision_tpu_torch import trace
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from tests import reference_vit
+    bench = spec.load()
+    model = spec.config(bench, "svision-vit-b16-bf16")["model"]
+    params = {k: v.cpu().numpy()
+              for k, v in engine_vit.params(model, 1_000_003, cuda).items()}
+    eng = InferenceEngine(params, bf16=bf16)
+    assert eng.network == "vit_b16"
+    assert eng._replicas[0][0].widths.hidden == 768
+    eng.warmup()
+    for n in (1, 129, 17 * 128 + 5, 8192):
+        specs = random_specs(n, seed=n)
+        with trace.recording([cuda]) as rec:
+            p, s = eng.predict_specs(specs)
+        (call,) = rec.find("engine.call")
+        chunks, singles = eng.plan(n)
+        batches = sum(chunks) + singles
+        assert call.attrs["network"] == "vit_b16"
+        assert call.attrs["tokens"] == batches * 128 * 197
+        assert call.attrs["launches"] == {
+            **{w: 0 for w in _launches()}, "render_raster": batches,
+            "specs_endpoints": len(chunks) + singles}
+        with torch.inference_mode():
+            ep, es = eng._predict(specs, graphed=False)
+        assert np.array_equal(p, ep) and np.array_equal(s, es), n
+    specs = random_specs(1024, seed=31)
+    p, s = eng.predict_specs(specs)
+    seg = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+           for a in ref_raster.endpoints(specs))
+    with torch.no_grad(), reference_vit.f32_exact():
+        logits = reference_vit.logits(params, ref_raster.draw(*seg))
+    got = bench_engine.readings(logits, p, s)
+    bounds = (spec.limits("vit-b16.genome")["limits"] if bf16
+              else VIT_F32_BOUNDS)
+    assert all(got[k] <= v for k, v in bounds.items()), got
+    assert int((np.bincount(p, minlength=5) >= 0.05 * len(p)).sum()) >= 3
+
 @pytest.mark.parametrize("bf16", [True, False])
 def test_mesh_engine_equals_one_card(cuda, bf16):
     """The data-parallel engine over two cards gives each replica whole

@@ -131,8 +131,9 @@ SPAN_CASES = {
 @pytest.mark.parametrize("case", list(SPAN_CASES))
 def test_engine_call_spans_on_the_cpu(params, case):
     """An 11-row call at batch 4, chunk 2 (SPAN_CASES). engine.call holds
-    its rows, padding, dispatches, the bf16 network's three split grouped
-    layers and launch deltas (none on the CPU); its children are the
+    its rows, padding, dispatches, its network (AlexNet's weights: no
+    tokens), the bf16 network's three split grouped layers and launch
+    deltas (none on the CPU); its children are the
     padding, one endpoint span a dispatch, one dispatch span a dispatch a
     device with the rows that device's launches take, the sync and the
     unshard; the outputs equal those made with recording off, bit for
@@ -146,7 +147,7 @@ def test_engine_call_spans_on_the_cpu(params, case):
     (call,) = rec.find("engine.call")
     assert call.attrs == {
         "rows": 11, "padded_rows": padded, "dispatches": len(host_rows),
-        "graphed": False, "split_groups": 3,
+        "graphed": False, "network": "alexnet", "split_groups": 3,
         "launches": {w.__name__: 0 for w in graphs.kernel_wrappers()}}
     kids = rec.children(call)
     assert [s.name for s in sorted(kids, key=lambda s: s.start_ns)] == (
@@ -355,7 +356,8 @@ def test_call_launches_equal_the_plan(cuda, params, bf16):
 @pytest.mark.gpu
 def test_captures_after_warmup(cuda, params):
     """A warmed 'full' engine captures no graph in later calls; a 'pow2'
-    engine captures one at a tail shape it has not seen, then none."""
+    engine captures one at a tail shape it has not seen, then none; the
+    capture's span names its card, batches and network."""
     full = InferenceEngine(params)
     full.warmup()
     with trace.recording([cuda]) as rec:
@@ -370,7 +372,8 @@ def test_captures_after_warmup(cuda, params):
             pow2.predict_specs(random_specs(3 * 128, seed=3))
         assert rec.counts.get("graphs.captures", 0) == expect
         caps = rec.find("engine.capture")
-        assert [s.attrs for s in caps] == [{"card": 0, "batches": 4}] * expect
+        assert [s.attrs for s in caps] == [
+            {"card": 0, "batches": 4, "network": "alexnet"}] * expect
 
 
 @pytest.mark.gpu
