@@ -534,7 +534,10 @@ def check_pool_lrn(cold_buffers: int = 4) -> list:
     with warm caches (one input) and with a cold L2 (cold_buffers inputs
     in turn). A torch copy_ that moves the kernel's byte count (half read,
     half written), timed cold the same way, is context for the memory rate
-    reached; nothing on the port's path calls it."""
+    reached; nothing on the port's path calls it. Then the split form the
+    bf16 network takes at each tail (models/alexnet.py: conv1's writes two
+    channel halves, conv2's reads two): bit-equal to the joined launch,
+    timed the same way, against the same bound."""
     import torch
     from svision_tpu_torch.ops import fused_pool_lrn
     dev = torch.device("cuda")
@@ -577,6 +580,30 @@ def check_pool_lrn(cold_buffers: int = 4) -> list:
                     [lambda s=s: dst.copy_(s) for s in src])))
             log(f"K2 bias_relu_pool_lrn {tail} {kind}: ok, {variants[-1]}")
             del xs, src, dst
+            if tail == "conv1":
+                form, ins, halves = "halves_out", [x] * cold_buffers, True
+            else:
+                form, halves = "halves_in", False
+                ins = [tuple(t.contiguous() for t in xi.chunk(2, dim=-1))
+                       for xi in [x] + [x.clone()
+                                        for _ in range(cold_buffers - 1)]]
+            split = k2(ins[0], bias, out_halves=halves)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.cat(split, dim=-1) if halves else split,
+                               got), f"K2 {tail} {kind} {form}: not bit-equal"
+            variants.append(dict(
+                tail=tail, dtype=kind, form=form, shape=list(x.shape),
+                bit_equal_to_joined=True, max_abs_err=err,
+                ms=time_ms(lambda: k2(ins[0], bias, out_halves=halves)),
+                warm_ms=spread_ms([lambda: k2(ins[0], bias,
+                                              out_halves=halves)]),
+                cold_ms=spread_ms([lambda xi=xi: k2(xi, bias,
+                                                    out_halves=halves)
+                                   for xi in ins]),
+                bound_ms=b, bound_by=by, bytes_moved=moved))
+            log(f"K2 bias_relu_pool_lrn {tail} {kind} {form}: ok, "
+                f"{variants[-1]}")
+            del ins, split
     return variants
 
 
@@ -826,12 +853,15 @@ def check_engine(params) -> dict:
         torch.cuda.empty_cache()
         graph_bytes = torch.cuda.memory_reserved() - reserved
         # K2 copies nothing: both of its inputs on the engine's path (conv1's
-        # and conv2's outputs, NHWC) must already be contiguous
+        # and conv2's outputs, NHWC; conv2's two halves on the split route)
+        # must already be contiguous
         k2, seen = alexnet.bias_relu_pool_lrn, []
 
-        def recording(x, b):
-            seen.append((tuple(x.shape), x.is_contiguous()))
-            return k2(x, b)
+        def recording(x, b, out_halves=False):
+            xs = x if isinstance(x, tuple) else (x,)
+            seen.append(([tuple(t.shape) for t in xs],
+                         all(t.is_contiguous() for t in xs)))
+            return k2(x, b, out_halves=out_halves)
         alexnet.bias_relu_pool_lrn = recording
         try:
             with torch.inference_mode():
@@ -1082,16 +1112,18 @@ def _records(path: str):
 
 # launches per batch of each mode's device step, on each device of the
 # engine; the endpoints kernel's are per dispatch (PER_DISPATCH)
+# and K2's calls in a split form (the bf16 network's two a batch; a CPU
+# engine counts them too, and the CPU runs here are exact)
 PER_BATCH = {
     "default": {"render_raster": 0, "bias_relu_pool_lrn": 2,
                 "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
-                "specs_endpoints": 0},
+                "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 2},
     "exact": {"render_raster": 0, "bias_relu_pool_lrn": 2,
               "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
-              "specs_endpoints": 0},
+              "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0},
     "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
             "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0,
-            "specs_endpoints": 0}}
+            "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}}
 # phase 8's modes: engine arguments, and K1's dtype where it runs
 MODES = {
     "bf16_compare": (dict(raster="compare"), None),
@@ -1105,7 +1137,9 @@ MODES = {
 PER_BATCH.update({mode: {"render_raster": int(k1 is not None),
                          "bias_relu_pool_lrn": 2,
                          "bias_relu_pool_lrn_backward": 0,
-                         "conv1_fused_raster": 0, "specs_endpoints": 0}
+                         "conv1_fused_raster": 0, "specs_endpoints": 0,
+                         "bias_relu_pool_lrn_halves": 0 if "int8" in mode
+                         else 2}
                   for mode, (_, k1) in MODES.items()})
 # launches per dispatch of each mode, on each device of the engine: the
 # endpoints of the dispatch's rows, at the head of the replica's step
@@ -1788,7 +1822,7 @@ def _per_step(k1: int, tails: int) -> dict:
     bias/ReLU/pool/LRN tail (two per conv stack)."""
     return {"render_raster": k1, "bias_relu_pool_lrn": tails,
             "bias_relu_pool_lrn_backward": tails, "conv1_fused_raster": 0,
-            "specs_endpoints": 0}
+            "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}
 
 
 # launches per step of each training run, and per batch of evaluate; the
@@ -1801,7 +1835,7 @@ PER_STEP = {
     "fit_mesh": _per_step(1, 2 * 4),
     "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
                  "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0,
-                 "specs_endpoints": 0}}
+                 "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}}
 
 
 def labeled(n: int, seed: int):
@@ -2563,7 +2597,8 @@ def check_tools(work: str) -> dict:
     # every kernel of the step; no training, and no endpoints kernel: the
     # step's prefixes take endpoints made on the host
     assert all((r["launches"][k] > 0) == (
-        k not in ("bias_relu_pool_lrn_backward", "specs_endpoints"))
+        k not in ("bias_relu_pool_lrn_backward", "specs_endpoints",
+                  "bias_relu_pool_lrn_halves"))
                for k in r["launches"]), r["launches"]
     out["roofline_exact"] = dict(roof, launches=r["launches"])
     seconds["roofline"] = time.perf_counter() - t0
@@ -2639,7 +2674,8 @@ def kernel_line(kernels: dict, runs: dict, build: dict) -> dict:
     rows = []
     for row, name, src, replaces, dtype, tail in info:
         main = next(v for v in kernels[name] if v["dtype"] == dtype and "ms" in v
-                    and v.get("tail", tail) == tail and v.get("segs", 2) == 2)
+                    and v.get("tail", tail) == tail and v.get("segs", 2) == 2
+                    and "form" not in v)
         # K1's launches by the dtype each run renders in
         mine = {run: r for run, r in runs.items()
                 if name != "render_raster"

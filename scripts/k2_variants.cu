@@ -112,8 +112,9 @@ pool_lrn_cp_async(const Args a) {
       rows[dr] = reinterpret_cast<const T*>(
           ring + ((f0 + dr) % a.slots) * a.slot_bytes + (start & 15));
     }
-    rot = pool_row<T, kV>(rows, bias_s, static_cast<T*>(a.out) + j * a.Wo * C,
-                          C, a.Wo, warp, lane, rot);
+    T* const orow[2] = {static_cast<T*>(a.out) + j * a.Wo * C, nullptr};
+    rot = pool_row<T, kV, false, false>(rows, bias_s, orow, C, 0, a.Wo, warp,
+                                        lane, rot);
     __syncthreads();
     fi = fetch_rows<T>(a, ring, j + kDepth, row0, row1, fi, tid);
     cp_async_commit();
@@ -138,8 +139,9 @@ pool_lrn_direct(const Args a) {
     const int ho = static_cast<int>(j - n * a.Ho);
     const T* r0 = static_cast<const T*>(a.x) + (n * a.H + 2 * ho) * row_elems;
     const T* const rows[3] = {r0, r0 + row_elems, r0 + 2 * row_elems};
-    rot = pool_row<T, kV>(rows, bias_s, static_cast<T*>(a.out) + j * a.Wo * C,
-                          C, a.Wo, warp, lane, rot);
+    T* const orow[2] = {static_cast<T*>(a.out) + j * a.Wo * C, nullptr};
+    rot = pool_row<T, kV, false, false>(rows, bias_s, orow, C, 0, a.Wo, warp,
+                                        lane, rot);
   }
 }
 

@@ -36,6 +36,17 @@
 //   A row whose byte length is not a multiple of 16 is copied from its
 //   16-byte-aligned cover, and the bytes past the tensor's last 16-byte
 //   boundary are loaded by the producer thread itself.
+// - The split network (models/alexnet.py) keeps conv2's two groups apart,
+//   as two contiguous NHWC tensors of C/2 channels. Two template forms
+//   read or write such halves in place, so that nothing joins or copies
+//   them around the kernel. kSplitIn: a row arrives as two bulk copies,
+//   one a half, into one slot, half 1 after half 0; a lane reads its
+//   channels in its half with the half's pixel stride. The lanes keep
+//   their channel order, so the LRN's neighbours across the boundary
+//   come from the same shuffles. kSplitOut: a lane stores its channels
+//   to its half. Either takes C % 16 == 0, so that no lane of 8 channels
+//   straddles the halves and each half's row is a multiple of 16 bytes.
+//   With both false the kernel is the joined one.
 // The constants below were chosen by scripts/torch_k2_variants.py on the
 // card (PERF.md has the sweep). The same script times the simpler fills of
 // scripts/k2_variants.cu, which share pool_row: a ring filled with 16-byte
@@ -74,6 +85,9 @@ struct Args {
   int slot_bytes;     // a multiple of 16
   int slots;
   int bias_bf16;
+  const void* x1;     // the split forms: channel half 1 of x (x is half 0)
+  void* out1;         // and of out
+  int half_bytes;     // W * C/2 * sizeof(T): a half's row, a multiple of 16
 };
 
 // ---------------------------------------------------------------------------
@@ -221,15 +235,19 @@ __device__ __forceinline__ void stage_bias(const Args& a, int C, float* bias_s,
   }
 }
 
-// Output row orow (Wo pixels of C channels) from input rows r[0..2], by
+// Output row orow[0] (Wo pixels of C channels) from input rows r[0..2], by
 // kConsumerWarps warps. A lane owns kV channels (one group) of one output
 // pixel; lane task q runs along the row's flattened (wo, group) axis. Chunk
 // k of the row goes to warp (rot + k) % kConsumerWarps; returns the next
 // row's rot, which turns so that no warp always takes the extra chunk.
-template <typename T, int kV>
+// kSplitIn: each input row holds half 1's pixels half_elems elements after
+// half 0's; kSplitOut: orow[0] and orow[1] are the row's two halves.
+template <typename T, int kV, bool kSplitIn, bool kSplitOut>
 __device__ __forceinline__ int pool_row(const T* const (&r)[3],
-                                        const float* bias_s, T* orow, int C,
-                                        int Wo, int warp, int lane, int rot) {
+                                        const float* bias_s,
+                                        T* const (&orow)[2], int C,
+                                        int half_elems, int Wo, int warp,
+                                        int lane, int rot) {
   const int L = C / kV;                       // groups per pixel
   const int tasks = Wo * L;
   const int reach = kV >= 2 ? 1 : 2;          // neighbour groups the LRN needs
@@ -246,10 +264,17 @@ __device__ __forceinline__ int pool_row(const T* const (&r)[3],
 #pragma unroll
     for (int i = 0; i < kV; ++i) p[i] = 0.f;
     if (valid) {
-      const int off = 2 * wo * C + c0;
+      int off, stride = C;
+      if constexpr (kSplitIn) {
+        const int hi = c0 >= C / 2;
+        stride = C / 2;
+        off = hi * half_elems + 2 * wo * stride + c0 - hi * stride;
+      } else {
+        off = 2 * wo * C + c0;
+      }
       const T* const win[3] = {r[0] + off, r[1] + off, r[2] + off};
       float m[kV], b[kV];
-      window_max<kV>(win, C, m);
+      window_max<kV>(win, stride, m);
       load_f32<kV>(bias_s + c0, b);
       // relu then max == max(0, max(x) + b)
 #pragma unroll
@@ -287,7 +312,12 @@ __device__ __forceinline__ int pool_row(const T* const (&r)[3],
         const float rs = rsqrtf(__fadd_rn(kBiasK, __fmul_rn(kAlpha, s)));
         o[i] = __fmul_rn(p[i], __fmul_rn(rs, sqrtf(rs)));
       }
-      store_f32<kV>(orow + wo * C + c0, o);
+      if constexpr (kSplitOut) {
+        const int hi = c0 >= C / 2;
+        store_f32<kV>(orow[hi] + wo * (C / 2) + c0 - hi * (C / 2), o);
+      } else {
+        store_f32<kV>(orow[0] + wo * C + c0, o);
+      }
     }
   }
   return (rot + chunks) % kConsumerWarps;
@@ -297,8 +327,9 @@ __device__ __forceinline__ int pool_row(const T* const (&r)[3],
 // the kernel
 // ---------------------------------------------------------------------------
 
-// C = kC, or a.C when kC is 0; kV channels per lane, kV | C.
-template <typename T, int kC, int kV>
+// C = kC, or a.C when kC is 0; kV channels per lane, kV | C; the split
+// forms as in the header note.
+template <typename T, int kC, int kV, bool kSplitIn, bool kSplitOut>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSm)
 pool_lrn_ring(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -336,11 +367,22 @@ pool_lrn_ring(const Args a) {
       for (int h = first ? 2 * ho : 2 * ho + 1; h <= 2 * ho + 2; ++h, ++f) {
         const int s = f % a.slots, round = f / a.slots;
         if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char* slot = ring + s * a.slot_bytes;
+        if constexpr (kSplitIn) {
+          // each half's rows are 16-byte multiples from 16-byte-aligned
+          // bases: a whole bulk copy each, nothing past either tensor
+          const long long start = (n * a.H + h) * a.half_bytes;
+          mbar_arrive_expect_tx(&full[s], 2u * a.half_bytes);
+          bulk_load(slot, x + start, a.half_bytes, &full[s]);
+          bulk_load(slot + a.half_bytes,
+                    static_cast<const unsigned char*>(a.x1) + start,
+                    a.half_bytes, &full[s]);
+          continue;
+        }
         const long long start = (n * a.H + h) * a.row_bytes;
         const long long end = start + a.row_bytes;
         const long long lo = start & ~15LL;
         const long long copy_end = min((end + 15) & ~15LL, x_floor);
-        unsigned char* slot = ring + s * a.slot_bytes;
         // bytes past the tensor's last 16-byte boundary: no bulk copy
         // may read beyond the tensor
         if (max(copy_end, start) < end) {
@@ -375,12 +417,24 @@ pool_lrn_ring(const Args a) {
     for (int dr = 0; dr < 3; ++dr) {
       const int fr = f0 + dr, s = fr % a.slots;
       mbar_wait(&full[s], (fr / a.slots) & 1);
-      const long long start = (n * a.H + 2 * ho + dr) * a.row_bytes;
+      // a split row starts on its slot; a joined one at its offset from
+      // its 16-byte cover
+      const long long start =
+          kSplitIn ? 0 : (n * a.H + 2 * ho + dr) * a.row_bytes;
       rows[dr] = reinterpret_cast<const T*>(ring + s * a.slot_bytes +
                                             (start & 15));
     }
-    rot = pool_row<T, kV>(rows, bias_s, static_cast<T*>(a.out) + j * a.Wo * C,
-                          C, a.Wo, warp, lane, rot);
+    T* orow[2];
+    if constexpr (kSplitOut) {
+      orow[0] = static_cast<T*>(a.out) + j * a.Wo * (C / 2);
+      orow[1] = static_cast<T*>(a.out1) + j * a.Wo * (C / 2);
+    } else {
+      orow[0] = static_cast<T*>(a.out) + j * a.Wo * C;
+      orow[1] = nullptr;
+    }
+    rot = pool_row<T, kV, kSplitIn, kSplitOut>(
+        rows, bias_s, orow, C, a.half_bytes / static_cast<int>(sizeof(T)),
+        a.Wo, warp, lane, rot);
 
     // free rows 2ho and 2ho+1; 2ho+2 too unless the next row of this run
     // is the next row of the same image
@@ -430,14 +484,15 @@ int launch_persistent(Kernel kernel, int threads, size_t smem, int max_per_sm,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kC, int kV>
+template <typename T, int kC, int kV, bool kSplitIn = false,
+          bool kSplitOut = false>
 int launch(const Args& a, cudaStream_t stream) {
   static thread_local LaunchCache cache;
   const size_t smem = static_cast<size_t>(a.slots) * a.slot_bytes +
                       sizeof(float) * ((a.C + 3) & ~3) +
                       2 * sizeof(uint64_t) * a.slots;
-  return launch_persistent(pool_lrn_ring<T, kC, kV>, kThreads, smem,
-                           kMaxBlocksPerSm, cache, a, stream);
+  return launch_persistent(pool_lrn_ring<T, kC, kV, kSplitIn, kSplitOut>,
+                           kThreads, smem, kMaxBlocksPerSm, cache, a, stream);
 }
 
 template <typename T>
@@ -448,6 +503,20 @@ int dispatch(const Args& a, cudaStream_t s) {
   if (a.C % 4 == 0) return launch<T, 0, 4>(a, s);
   if (a.C % 2 == 0) return launch<T, 0, 2>(a, s);
   return launch<T, 0, 1>(a, s);
+}
+
+// the split forms, C % 16 == 0: 8 channels a lane
+template <typename T, bool kSplitIn, bool kSplitOut>
+int dispatch_split(const Args& a, cudaStream_t s) {
+  if (a.C == 96) return launch<T, 96, 8, kSplitIn, kSplitOut>(a, s);
+  if (a.C == 256) return launch<T, 256, 8, kSplitIn, kSplitOut>(a, s);
+  return launch<T, 0, 8, kSplitIn, kSplitOut>(a, s);
+}
+
+template <typename T>
+int dispatch_form(const Args& a, cudaStream_t s) {
+  return a.x1 ? dispatch_split<T, true, false>(a, s)
+              : dispatch_split<T, false, true>(a, s);
 }
 
 // The entry point's arguments as Args, with a ring of up to max_slots row
@@ -479,6 +548,9 @@ int make_args(Args& a, const void* x, const void* bias, void* out, int n,
   if (slots < 3) return static_cast<int>(cudaErrorInvalidValue);
   a.slots = static_cast<int>(slots < max_slots ? slots : max_slots);
   a.bias_bf16 = bias_bf16;
+  a.x1 = nullptr;
+  a.out1 = nullptr;
+  a.half_bytes = static_cast<int>(row_bytes / 2);
   return 0;
 }
 
@@ -497,4 +569,31 @@ extern "C" int svt_bias_relu_pool_lrn(const void* x, const void* bias,
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s);
+}
+
+// svt_bias_relu_pool_lrn with x or out as two channel halves, C % 16 == 0:
+// x1 non-null reads x as halves x [n,H,W,C/2] and x1, or out1 non-null
+// writes out as halves out [n,Ho,Wo,C/2] and out1; every half contiguous
+// and 16-byte aligned.
+extern "C" int svt_bias_relu_pool_lrn_split(const void* x, const void* x1,
+                                            const void* bias, void* out,
+                                            void* out1, int n, int H, int W,
+                                            int C, int bf16, int bias_bf16,
+                                            void* stream) {
+  if (n <= 0) return 0;
+  if (C % 16 != 0 || (x1 != nullptr) == (out1 != nullptr) ||
+      reinterpret_cast<uintptr_t>(x1) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out1) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a;
+  const int err = make_args(a, x, bias, out, n, H, W, C, bf16, bias_bf16,
+                            kMaxSlots);
+  if (err) return err;
+  a.x1 = x1;
+  a.out1 = out1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch_form<__nv_bfloat16>(a, s)
+              : dispatch_form<float>(a, s);
 }

@@ -11,8 +11,9 @@ it enqueued every kernel.
 Launch counts. Each kernel wrapper (ops/raster_kernel.render_raster,
 ops/fused_pool_lrn.bias_relu_pool_lrn and bias_relu_pool_lrn_backward,
 ops/fused_conv1.conv1_fused_raster, ops/endpoints.specs_endpoints) ticks
-its `launches` counter in Python when it enqueues its kernel. A capture
-ticks it though nothing runs, and a replay runs the kernels without a
+its `launches` counter in Python when it enqueues its kernel, and K2's
+split forms tick fused_pool_lrn.bias_relu_pool_lrn_halves besides. A
+capture ticks it though nothing runs, and a replay runs the kernels without a
 tick. capture() takes back a capture's ticks and keeps how many launches
 of each wrapper the graph holds, and Graph.replay() adds them, so every
 counter keeps meaning "kernels executed". The engine reads them per call
@@ -45,10 +46,13 @@ WARMUP_STEPS = 3
 
 
 def kernel_wrappers() -> Tuple[Callable, ...]:
-    """The hand-written kernels' wrappers, each with its `launches`."""
+    """The hand-written kernels' wrappers, each with its `launches` and
+    `__name__`, and the counter of K2's calls in a split form
+    (fused_pool_lrn.bias_relu_pool_lrn_halves)."""
     return (raster_kernel.render_raster, fused_pool_lrn.bias_relu_pool_lrn,
             fused_pool_lrn.bias_relu_pool_lrn_backward,
-            fused_conv1.conv1_fused_raster, endpoints.specs_endpoints)
+            fused_conv1.conv1_fused_raster, endpoints.specs_endpoints,
+            fused_pool_lrn.bias_relu_pool_lrn_halves)
 
 
 class Graph:

@@ -23,11 +23,12 @@ between layers. Logits are f32 either way.
 In bf16 the grouped layers run split (AlexNet.split_groups): each as two
 ungrouped convolutions, one per group (conv_halves), since cuDNN's grouped
 NHWC bf16 call slices its groups out and copies them back on every call.
-From conv3 to conv5 the activations then travel as two channel halves,
-joined only where an op needs every channel: conv2's output, for the LRN
-window that crosses the group boundary, and conv5's pooled output, for
-fc6. In f32 every layer makes its own grouped call, bit for bit the exact
-route's.
+The activations then travel as two channel halves: K2 writes conv1's
+tail as conv2's two contiguous input halves and reads conv2's two output
+halves in place (its LRN window crosses the group boundary); conv4 reads
+its halves as views of conv3's output; conv5's pooled halves are joined
+for fc6. In f32 every layer makes its own grouped call, bit for bit the
+exact route's.
 
 Class ids: 0=DEL 1=INS 2=INV 3=DUP 4=tDUP (predict.py:133-142).
 """
@@ -349,7 +350,9 @@ class AlexNet(nn.Module):
     def stages(self):
         """forward_conv1's stages, one per STAGE_LAYERS entry, in order:
         each takes the previous stage's output. conv3 and conv4 hand on
-        their output as a tuple of channel blocks NCHW (_blocks)."""
+        their output as a tuple of channel blocks NCHW (_blocks); when the
+        groups run split, conv1's block hands on its output as K2's two
+        channel halves NHWC."""
         return (self._conv1_block, self._conv2_block, self._conv3,
                 self._conv4, self._conv5_pool, self._head)
 
@@ -378,13 +381,20 @@ class AlexNet(nn.Module):
         return (self._conv(layer, xs[0], bias),)
 
     def _conv1_block(self, pre):
-        return bias_relu_pool_lrn(pre, self.conv1.bias)         # [N,27,27,96]
+        # [N,27,27,96], or split as conv2's two contiguous input halves
+        # [N,27,27,48], which its convolutions read with no copy
+        return bias_relu_pool_lrn(pre, self.conv1.bias,
+                                  out_halves=bool(self.split_groups))
 
     def _conv2_block(self, h):
-        xs = self._blocks(h.permute(0, 3, 1, 2))
-        # joined: K2's LRN window crosses the group boundary
-        h = _join(self._convs(self.conv2, xs, bias=False))
-        h = bias_relu_pool_lrn(h.permute(0, 2, 3, 1), self.conv2.bias)
+        hs = h if self.split_groups else (h,)
+        ys = self._convs(self.conv2, tuple(x.permute(0, 3, 1, 2) for x in hs),
+                         bias=False)
+        # K2 reads conv2's output halves where they lie: its LRN window
+        # crosses the group boundary
+        ys = tuple(y.permute(0, 2, 3, 1) for y in ys)
+        h = bias_relu_pool_lrn(ys if self.split_groups else ys[0],
+                               self.conv2.bias)
         return h.permute(0, 3, 1, 2)                            # [N,256,13,13]
 
     def _conv3(self, h):

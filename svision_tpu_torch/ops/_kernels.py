@@ -46,6 +46,8 @@ ENTRIES = {
     "svt_render_raster": ("raster.cu", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "svt_bias_relu_pool_lrn": ("pool_lrn.cu",
                                [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "svt_bias_relu_pool_lrn_split": (
+        "pool_lrn.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "svt_bias_relu_pool_lrn_backward": (
         "pool_lrn_backward.cu",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

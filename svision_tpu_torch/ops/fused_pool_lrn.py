@@ -6,7 +6,10 @@ Counterpart of the JAX package's ops/fused_pool_lrn.py
 bias_relu_pool_lrn_plain below, which a CPU tensor goes to. A CUDA tensor
 launches the kernel or raises. It runs twice per batch on both engine
 paths: after conv1 ([N,55,55,96] -> [N,27,27,96]) and after conv2
-([N,27,27,256] -> [N,13,13,256]).
+([N,27,27,256] -> [N,13,13,256]). The bf16 network keeps conv2's two
+groups apart (models/alexnet.py), and K2 meets them where they lie: it
+writes conv1's tail as conv2's two input halves and reads conv2's two
+output halves, so nothing joins or copies them.
 
 The trainers run the same function through BiasReluPoolLRN, an autograd
 Function: K2 forward, and backward csrc/pool_lrn_backward.cu
@@ -26,6 +29,8 @@ bulk copies; its header note has the design.
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 import torch.nn.functional as F
@@ -74,55 +79,114 @@ def _wide(dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def bias_relu_pool_lrn_plain(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: x [N,H,W,C] (bf16 or f32; f64 computes in
-    f64), bias [C]."""
+def _pieces(x, out_halves: bool) -> tuple:
+    """K2's input as its pieces: (x,) for a tensor, (x0, x1) for a pair of
+    channel halves, which must agree in shape, dtype and device; halves go
+    in or come out, not both."""
+    if isinstance(x, torch.Tensor):
+        return (x,)
+    xs = tuple(x)
+    if out_halves:
+        raise ValueError("bias_relu_pool_lrn: channel halves go in or come "
+                         "out, not both")
+    if len(xs) != 2 or any(
+            (t.shape, t.dtype, t.device) != (xs[0].shape, xs[0].dtype,
+                                             xs[0].device) for t in xs):
+        got = [(tuple(t.shape), t.dtype, str(t.device)) for t in xs]
+        raise ValueError("bias_relu_pool_lrn: x must be a tensor or two "
+                         "channel halves of one shape, dtype and device, got "
+                         f"{got}")
+    return xs
+
+
+def bias_relu_pool_lrn_plain(x, bias: torch.Tensor, out_halves: bool = False):
+    """Plain PyTorch version, in bias_relu_pool_lrn's forms: x [N,H,W,C]
+    (bf16 or f32; f64 computes in f64) or its two channel halves, joined
+    first; bias [C]; out_halves splits the output into its two channel
+    halves, each contiguous."""
+    xs = _pieces(x, out_halves)
+    x = xs[0] if len(xs) == 1 else torch.cat(xs, dim=-1)
     wide = _wide(x.dtype)
     y = torch.relu(x.to(wide) + bias.to(wide))
     p = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
-    return lrn(p).to(x.dtype)
+    out = lrn(p).to(x.dtype)
+    if out_halves:
+        return tuple(t.contiguous() for t in out.chunk(2, dim=-1))
+    return out
 
 
-def bias_relu_pool_lrn(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def bias_relu_pool_lrn(x, bias: torch.Tensor, *, out_halves: bool = False):
     """relu(x + bias) -> 3x3 stride-2 VALID maxpool -> LRN(2, 2e-5, 0.75, 1).
 
     x [N,H,W,C] channels-last (bf16 or f32), bias [C] (bf16 or f32, read
     as stored) -> [N,Ho,Wo,C] in x's dtype. On the card x must be
     contiguous, which the NHWC permute of a channels_last NCHW tensor is,
     and 16-byte aligned: the kernel fills its ring with bulk copies. Not
-    differentiable (_kernels.check_no_grad)."""
-    _kernels.check_no_grad("bias_relu_pool_lrn", x, bias)
-    if x.device.type == "cpu":
-        return bias_relu_pool_lrn_plain(x, bias)
+    differentiable (_kernels.check_no_grad).
+
+    The split forms, for a network that keeps two channel groups apart:
+    x may be a pair (x0, x1) of its channel halves [N,H,W,C/2], which the
+    kernel reads where they lie, and out_halves=True returns the output
+    as its two channel halves [N,Ho,Wo,C/2], one form or the other. On
+    the card they take C % 16 == 0 and every half contiguous and 16-byte
+    aligned. A call in a split form also ticks bias_relu_pool_lrn_halves,
+    on the CPU too."""
+    xs = _pieces(x, out_halves)
+    _kernels.check_no_grad("bias_relu_pool_lrn", *xs, bias)
+    split = len(xs) == 2 or out_halves
+    if xs[0].device.type == "cpu":
+        bias_relu_pool_lrn_halves.launches += split
+        return bias_relu_pool_lrn_plain(x, bias, out_halves)
+    x = xs[0]
     if x.dim() != 4 or x.dtype not in KERNEL_DTYPES:
         raise ValueError("bias_relu_pool_lrn: x must be [N,H,W,C] f32/bf16, "
                          f"got {tuple(x.shape)} {x.dtype}")
     n, h, w, c = x.shape
+    c *= len(xs)
     if (bias.shape != (c,) or bias.dtype not in KERNEL_DTYPES or h < 3
             or w < 3):
         raise ValueError(f"bias_relu_pool_lrn: bias {tuple(bias.shape)} "
-                         f"{bias.dtype} for x {tuple(x.shape)}")
-    _kernels.check_cuda(x, bias)
-    if not (x.is_contiguous() and bias.is_contiguous()):
+                         f"{bias.dtype} for x {tuple(x.shape)} x {len(xs)}")
+    _kernels.check_cuda(*xs, bias)
+    if not (all(t.is_contiguous() for t in xs) and bias.is_contiguous()):
         raise ValueError("bias_relu_pool_lrn: x and bias must be contiguous, "
-                         f"got x strides {x.stride()}")
-    if x.data_ptr() % 16:
+                         f"got x strides {[t.stride() for t in xs]}")
+    if any(t.data_ptr() % 16 for t in xs):
         raise ValueError("bias_relu_pool_lrn: x must be 16-byte aligned, got "
-                         f"address {x.data_ptr():#x}")
+                         f"addresses {[hex(t.data_ptr()) for t in xs]}")
+    if split and c % 16:
+        raise ValueError("bias_relu_pool_lrn: the split forms take C % 16 == "
+                         f"0, got C {c}")
     ho, wo = (h - 3) // 2 + 1, (w - 3) // 2 + 1
-    out = torch.empty((n, ho, wo, c), dtype=x.dtype, device=x.device)
+    outs = tuple(torch.empty((n, ho, wo, c // (1 + out_halves)),
+                             dtype=x.dtype, device=x.device)
+                 for _ in range(1 + out_halves))
     if n:
+        args = (n, h, w, c, int(x.dtype == torch.bfloat16),
+                int(bias.dtype == torch.bfloat16), _kernels.stream_of(x))
         with torch.cuda.device(x.device):
-            _kernels.launch("svt_bias_relu_pool_lrn", x.data_ptr(),
-                            bias.data_ptr(), out.data_ptr(), n, h, w, c,
-                            int(x.dtype == torch.bfloat16),
-                            int(bias.dtype == torch.bfloat16),
-                            _kernels.stream_of(x))
+            if split:
+                _kernels.launch(
+                    "svt_bias_relu_pool_lrn_split", x.data_ptr(),
+                    xs[1].data_ptr() if len(xs) == 2 else None,
+                    bias.data_ptr(), outs[0].data_ptr(),
+                    outs[1].data_ptr() if out_halves else None, *args)
+            else:
+                _kernels.launch("svt_bias_relu_pool_lrn", x.data_ptr(),
+                                bias.data_ptr(), outs[0].data_ptr(), *args)
         bias_relu_pool_lrn.launches += 1
-    return out
+        bias_relu_pool_lrn_halves.launches += split
+    return outs if out_halves else outs[0]
 
 
 bias_relu_pool_lrn.launches = 0
+# bias_relu_pool_lrn's calls in a split form: on the card each is one of
+# its launches, on the CPU a call of the plain version, so that the CPU
+# tests see the split route's wiring. graphs.kernel_wrappers() lists it
+# beside the wrappers, so captures and replays count it as they count
+# theirs.
+bias_relu_pool_lrn_halves = types.SimpleNamespace(
+    __name__="bias_relu_pool_lrn_halves", launches=0)
 
 
 # ---------------------------------------------------------------------------

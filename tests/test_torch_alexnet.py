@@ -217,8 +217,43 @@ def test_bf16_split_network_agrees_with_the_grouped_call(nets):
     assert torch.equal(got.argmax(1), want.argmax(1))
 
 
+def test_conv1_block_hands_halves_on_the_split_route_only(nets):
+    """AlexNet.stages()'s conv1 block: on the split route (bf16) K2's two
+    contiguous NHWC halves [N,27,27,48], the whole block's channels split
+    at 48 bit for bit; in f32 the whole block, one [N,27,27,96] tensor."""
+    for dtype, model in nets.items():
+        pre = _pre(2, dtype, seed=3)
+        got = model.stages()[0](pre)
+        want = bias_relu_pool_lrn(pre, model.conv1.bias)
+        if dtype == torch.float32:
+            assert isinstance(got, torch.Tensor) and torch.equal(got, want)
+            continue
+        assert isinstance(got, tuple) and len(got) == 2
+        assert all(t.is_contiguous() and tuple(t.shape) == (2, 27, 27, 48)
+                   for t in got)
+        assert torch.equal(torch.cat(got, dim=-1), want)
+
+
+def test_split_route_equals_the_joined_route(nets):
+    """The bf16 network, whose K2 writes conv2's input halves and reads
+    its output halves, against the route that joined them: K2 whole,
+    conv2's inputs as channel views of its output, conv2's halves joined
+    for K2. The same values reach every op, so logits bit for bit."""
+    model = nets[torch.bfloat16]
+    pre = _pre(3, torch.bfloat16, seed=4)
+    h = bias_relu_pool_lrn(pre, model.conv1.bias).permute(0, 3, 1, 2)
+    h = torch.cat(ta.conv_halves(model.conv2, h.chunk(2, dim=1), bias=False),
+                  dim=1)
+    h = bias_relu_pool_lrn(h.permute(0, 2, 3, 1), model.conv2.bias)
+    h = h.permute(0, 3, 1, 2)
+    for stage in model.stages()[2:]:
+        h = stage(h)
+    assert torch.equal(model.forward_conv1(pre), h)
+
+
 # forward_conv1(n_stages=k)'s output shapes [N=2]; conv3 and conv4 hand on
-# a tuple of channel blocks (two halves in bf16, one block in f32)
+# a tuple of channel blocks (two halves in bf16, one block in f32), and in
+# bf16 conv1's block K2's two NHWC halves
 _STAGE_SHAPES = {0: (2, 55, 55, 96), 1: (2, 27, 27, 96), 2: (2, 256, 13, 13),
                  5: (2, 256, 6, 6), 6: (2, 5)}
 
@@ -233,7 +268,10 @@ def test_forward_conv1_runs_every_prefix(nets, k, dtype):
     model = nets[dtype]
     pre = _pre(2, dtype, seed=2)
     h = model.forward_conv1(pre, n_stages=k)
-    if k in (3, 4):
+    if k == 1 and model.split_groups:
+        assert isinstance(h, tuple) and len(h) == 2
+        assert all(tuple(b.shape) == (2, 27, 27, 48) for b in h)
+    elif k in (3, 4):
         blocks = 2 if model.split_groups else 1
         assert isinstance(h, tuple) and len(h) == blocks
         assert all(tuple(b.shape) == (2, 384 // blocks, 13, 13) for b in h)

@@ -62,18 +62,31 @@ def test_empty_and_partial_batches(params, specs):
 def test_pool_lrn_inputs_need_no_copy(params, specs, bf16, monkeypatch):
     """K2's kernel copies nothing and refuses a non-contiguous x: both of
     its inputs on the engine's path (conv1's and conv2's outputs, NHWC)
-    are contiguous already, with the bias in x's dtype."""
+    are contiguous already, with the bias in x's dtype. The bf16 network
+    runs its groups split: K2 hands conv1's tail on as two contiguous
+    halves, and takes conv2's two output halves as they are."""
     from svision_tpu_torch.models import alexnet as ta
     seen, real = [], ta.bias_relu_pool_lrn
 
-    def recording(x, b):
-        seen.append((tuple(x.shape[1:]), x.is_contiguous(), x.dtype, b.dtype))
-        return real(x, b)
+    def recording(x, b, out_halves=False):
+        xs = x if isinstance(x, tuple) else (x,)
+        out = real(x, b, out_halves=out_halves)
+        outs = out if isinstance(out, tuple) else (out,)
+        seen.append(([tuple(t.shape[1:]) for t in xs],
+                     all(t.is_contiguous() for t in xs + outs),
+                     len(outs), x[0].dtype if len(xs) == 2 else x.dtype,
+                     b.dtype))
+        return out
     monkeypatch.setattr(ta, "bias_relu_pool_lrn", recording)
     InferenceEngine(params, batch_size=4, bf16=bf16,
                     device="cpu").predict_specs(specs[:4])
     dt = torch.bfloat16 if bf16 else torch.float32
-    assert seen == [((55, 55, 96), True, dt, dt), ((27, 27, 256), True, dt, dt)]
+    if bf16:
+        assert seen == [([(55, 55, 96)], True, 2, dt, dt),
+                        ([(27, 27, 128)] * 2, True, 1, dt, dt)]
+    else:
+        assert seen == [([(55, 55, 96)], True, 1, dt, dt),
+                        ([(27, 27, 256)], True, 1, dt, dt)]
 
 
 @pytest.mark.parametrize("tail", ["full", "pow2"])

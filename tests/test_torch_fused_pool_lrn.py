@@ -69,3 +69,48 @@ def test_lrn_is_tf_not_torch_local_response_norm():
     x[..., 3] = 10.0
     got = T.lrn(x)[..., 3].item()
     assert abs(got - 10.0 / (1 + 2e-5 * 100) ** 0.75) < 1e-6
+
+
+@pytest.mark.parametrize("form", ["halves-in", "halves-out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,c", [(55, 96), (27, 256)])
+def test_split_forms_equal_the_joined_plain(h, c, dtype, form):
+    """bias_relu_pool_lrn's split forms on the CPU (the plain version, as
+    the bf16 network calls it there) against the joined call on the same
+    channels, bit for bit: x as two contiguous channel halves, or the
+    output as two. Each such call ticks bias_relu_pool_lrn_halves once,
+    the joined call does not, and neither counts a launch."""
+    x, b = (torch.from_numpy(a).to(dtype) for a in _inputs(h, c, 2))
+    before = (T.bias_relu_pool_lrn.launches,
+              T.bias_relu_pool_lrn_halves.launches)
+    want = T.bias_relu_pool_lrn(x, b)
+    xin = (tuple(t.contiguous() for t in x.chunk(2, dim=-1))
+           if form != "halves-out" else x)
+    out_halves = form != "halves-in"
+    got = T.bias_relu_pool_lrn(xin, b, out_halves=out_halves)
+    assert (T.bias_relu_pool_lrn.launches,
+            T.bias_relu_pool_lrn_halves.launches) == (before[0],
+                                                      before[1] + 1)
+    plain = T.bias_relu_pool_lrn_plain(xin, b, out_halves)
+    if out_halves:
+        assert isinstance(got, tuple) and len(got) == 2
+        assert all(t.is_contiguous() and t.shape[-1] == c // 2 for t in got)
+        got, plain = torch.cat(got, dim=-1), torch.cat(plain, dim=-1)
+    assert got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(plain, want)
+
+
+def test_split_forms_refuse_bad_halves():
+    """x as anything but two halves of one shape, dtype and device is
+    refused, and so are halves both in and out, on the CPU as on the
+    card."""
+    x0 = torch.ones((1, 5, 5, 8))
+    b = torch.zeros(16)
+    for bad in ((x0, x0[..., :7]), (x0, x0.double()),
+                (x0, torch.ones((1, 5, 5, 8), device="meta")), (x0,),
+                (x0, x0, x0)):
+        with pytest.raises(ValueError, match="channel halves"):
+            T.bias_relu_pool_lrn(bad, b)
+    with pytest.raises(ValueError, match="not both"):
+        T.bias_relu_pool_lrn((x0, x0), b, out_halves=True)

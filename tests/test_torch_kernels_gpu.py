@@ -194,6 +194,87 @@ def test_pool_lrn_kernel(cuda, dtype, h, c, n):
     _check_pool_lrn(cuda, n, h, h, c, dtype, dtype)
 
 
+def _split_call(x, b, form):
+    """K2 in a split form on x whole: 'halves_in' hands it x's two channel
+    halves (contiguous copies), 'halves_out' asks for its output's two;
+    returns the output joined and the counters' deltas (launches, split
+    calls)."""
+    xin = (tuple(t.contiguous() for t in x.chunk(2, dim=-1))
+           if form == "halves_in" else x)
+    before = (fused_pool_lrn.bias_relu_pool_lrn.launches,
+              fused_pool_lrn.bias_relu_pool_lrn_halves.launches)
+    out = fused_pool_lrn.bias_relu_pool_lrn(
+        xin, b, out_halves=form == "halves_out")
+    after = (fused_pool_lrn.bias_relu_pool_lrn.launches,
+             fused_pool_lrn.bias_relu_pool_lrn_halves.launches)
+    if form == "halves_out":
+        assert isinstance(out, tuple) and len(out) == 2
+        assert all(t.is_contiguous() for t in out)
+        out = torch.cat(out, dim=-1)
+    return out, (after[0] - before[0], after[1] - before[1])
+
+
+# the split forms at the tails the bf16 network takes them at (conv2's
+# reads halves, conv1's writes them)
+SPLIT_FORMS = {"halves_in": (27, 256), "halves_out": (55, 96)}
+
+
+@pytest.mark.parametrize("n", [1, 3, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", list(SPLIT_FORMS))
+def test_pool_lrn_kernel_halves(cuda, form, dtype, n):
+    """K2 reading x as two channel halves (at [n,27,27,256]) or writing
+    its output as two (at [n,55,55,96]): bit-equal to the joined launch
+    on the same channels, one launch and one split call each."""
+    h, c = SPLIT_FORMS[form]
+    gen = torch.Generator(device=cuda).manual_seed(n * 1000 + c + 1)
+    x = (torch.randn((n, h, h, c), generator=gen, device=cuda) * 2).to(dtype)
+    b = torch.randn((c,), generator=gen, device=cuda).to(dtype)
+    want = fused_pool_lrn.bias_relu_pool_lrn(x, b)
+    got, counts = _split_call(x, b, form)
+    assert counts == (1, 1)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_pool_lrn_halves_graph_replay(cuda):
+    """Both split forms of K2 in one CUDA graph, bf16, 128 rows: each
+    replay equals the joined launches on what the static inputs hold then,
+    and counts two launches, both split."""
+    from svision_tpu_torch import graphs
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def inputs():
+        x1 = torch.randn((128, 55, 55, 96), generator=gen, device=cuda)
+        x2 = torch.randn((128, 27, 27, 256), generator=gen, device=cuda)
+        return [x1.to(torch.bfloat16)] + [
+            t.contiguous() for t in x2.to(torch.bfloat16).chunk(2, dim=-1)]
+    b1 = torch.randn((96,), generator=gen, device=cuda).to(torch.bfloat16)
+    b2 = torch.randn((256,), generator=gen, device=cuda).to(torch.bfloat16)
+    static = inputs()
+
+    def both():
+        return (fused_pool_lrn.bias_relu_pool_lrn(static[0], b1,
+                                                  out_halves=True),
+                fused_pool_lrn.bias_relu_pool_lrn(tuple(static[1:]), b2))
+    both()                      # builds and loads before the capture
+    g = graphs.capture(both, cuda)
+    assert g.launches == ((fused_pool_lrn.bias_relu_pool_lrn, 2),
+                          (fused_pool_lrn.bias_relu_pool_lrn_halves, 2))
+    for _ in range(2):
+        for t, src in zip(static, inputs()):
+            t.copy_(src)
+        before = _launches()
+        (o0, o1), o2 = g.replay()
+        got = {k: v - before[k] for k, v in _launches().items()}
+        assert got["bias_relu_pool_lrn"] == 2
+        assert got["bias_relu_pool_lrn_halves"] == 2
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat((o0, o1), dim=-1),
+                           fused_pool_lrn.bias_relu_pool_lrn(static[0], b1))
+        assert torch.equal(o2, fused_pool_lrn.bias_relu_pool_lrn(
+            torch.cat(static[1:], dim=-1), b2))
+
+
 def _check_pool_lrn_backward(dev, n, h, c, dtype, ties):
     """One launch per call; dx within 1e-5 (f32, with the same positions
     receiving a gradient) or 1e-2 (bf16) of the plain version's largest
@@ -484,6 +565,24 @@ def test_wrappers_reject_bad_inputs(cuda):
         fused_pool_lrn.bias_relu_pool_lrn(flat[1:].view(x.shape), b)
     with pytest.raises(ValueError):
         fused_pool_lrn.bias_relu_pool_lrn(x, b[:95])
+    # its split forms: halves of unequal shape, dtype or device, a
+    # non-contiguous or misaligned half, halves both in and out, a C the
+    # forms do not take
+    h0 = torch.zeros((2, 27, 27, 128), dtype=torch.bfloat16, device=cuda)
+    b2 = torch.zeros((256,), dtype=torch.bfloat16, device=cuda)
+    flat = torch.zeros((h0.numel() + 1,), dtype=torch.bfloat16, device=cuda)
+    for bad in ((h0, h0[..., :120]), (h0, h0.float()), (h0, h0.cpu()),
+                (h0, h0.transpose(1, 2)), (h0, flat[1:].view(h0.shape)),
+                (flat[1:].view(h0.shape), h0)):
+        with pytest.raises(ValueError):
+            fused_pool_lrn.bias_relu_pool_lrn(bad, b2)
+    with pytest.raises(ValueError):
+        fused_pool_lrn.bias_relu_pool_lrn((h0, h0), b2, out_halves=True)
+    h8 = torch.zeros((2, 27, 27, 4), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        fused_pool_lrn.bias_relu_pool_lrn((h8, h8), b2[:8])
+    with pytest.raises(ValueError):
+        fused_pool_lrn.bias_relu_pool_lrn(h8, b2[:4], out_halves=True)
     # its backward: a non-contiguous or misaligned dy, f64, mixed dtypes,
     # a C that is not a multiple of 8 or beyond a block's 384 lanes
     bwd = fused_pool_lrn.bias_relu_pool_lrn_backward
@@ -539,14 +638,15 @@ def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
         assert not torch.equal(v.detach(), start[k]), f"{k}: not updated"
 
 
-# launches per batch of each engine mode's step; the endpoints kernel runs
-# once a dispatch (_dispatches)
+# launches per batch of each engine mode's step, and K2's launches in a
+# split form (the bf16 network's); the endpoints kernel runs once a
+# dispatch (_dispatches)
 PER_BATCH = {True: {"render_raster": 0, "bias_relu_pool_lrn": 2,
                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
-                    "specs_endpoints": 0},
+                    "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 2},
              False: {"render_raster": 0, "bias_relu_pool_lrn": 2,
                      "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
-                     "specs_endpoints": 0}}
+                     "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}}
 
 
 def _dispatches(eng, n):
@@ -759,15 +859,15 @@ def test_mesh_engine_equals_one_card(cuda, bf16):
 
 
 # the engine's other modes (engine arguments), their launches per batch
-# (K1, K2, K3) and the endpoints kernel's per dispatch
+# (K1, K2, K3, K2 in a split form) and the endpoints kernel's per dispatch
 MODES = {
-    "bf16-compare": (dict(raster="compare"), (0, 2, 0), 1),
-    "bf16-einsum": (dict(raster="einsum"), (0, 2, 0), 1),
-    "bf16-pallas": (dict(raster="pallas"), (1, 2, 0), 1),
-    "int8-compare": (dict(int8=True), (0, 2, 0), 1),
-    "int8-einsum": (dict(int8=True, raster="einsum"), (0, 2, 0), 1),
-    "int8-pallas": (dict(int8=True, raster="pallas"), (1, 2, 0), 1),
-    "unfolded-bf16": (dict(fast=False), (1, 2, 0), 1),
+    "bf16-compare": (dict(raster="compare"), (0, 2, 0, 2), 1),
+    "bf16-einsum": (dict(raster="einsum"), (0, 2, 0, 2), 1),
+    "bf16-pallas": (dict(raster="pallas"), (1, 2, 0, 2), 1),
+    "int8-compare": (dict(int8=True), (0, 2, 0, 0), 1),
+    "int8-einsum": (dict(int8=True, raster="einsum"), (0, 2, 0, 0), 1),
+    "int8-pallas": (dict(int8=True, raster="pallas"), (1, 2, 0, 0), 1),
+    "unfolded-bf16": (dict(fast=False), (1, 2, 0, 2), 1),
 }
 
 
@@ -795,7 +895,8 @@ def test_engine_mode_graphs_equal_eager(cuda, mode):
         dispatches += 2 * _dispatches(eng, n)
         assert np.array_equal(p, ep) and np.array_equal(s, es), n
     got = {k: v - start[k] for k, v in _launches().items()}
-    names = ("render_raster", "bias_relu_pool_lrn", "conv1_fused_raster")
+    names = ("render_raster", "bias_relu_pool_lrn", "conv1_fused_raster",
+             "bias_relu_pool_lrn_halves")
     assert got == {"bias_relu_pool_lrn_backward": 0,
                    "specs_endpoints": per_dispatch * dispatches,
                    **{k: v * batches for k, v in zip(names, per_batch)}}
@@ -883,6 +984,57 @@ def test_bf16_engine_split_groups_against_the_grouped_network(cuda):
     assert [c.attrs["split_groups"] for c in rec.find("engine.call")] == [0]
 
 
+def test_bf16_engine_equals_the_joined_route(cuda):
+    """The bf16 engine, whose K2 writes conv2's input halves and reads
+    conv2's output halves where they lie, against the route that joined
+    them (K2 whole, conv2's inputs as strided channel views of its output,
+    conv2's two outputs joined by a cat for K2), on the engine's own
+    weights and 8,192 random specs: the logits bit for bit, batch by
+    batch, and the engine's answers equal to those of the joined logits.
+    engine.call counts K2's split calls: two a batch on the bf16 engine,
+    none on the exact one."""
+    from svision_tpu_torch import trace
+    from svision_tpu_torch.infer import engine
+    from svision_tpu_torch.models import alexnet
+    from bench import random_specs
+    specs = random_specs(8192, seed=29)
+    k2 = fused_pool_lrn.bias_relu_pool_lrn
+    for bf16 in (True, False):
+        eng = engine.InferenceEngine(init_params(0), bf16=bf16)
+        eng.warmup()
+        with trace.recording([cuda]) as rec:
+            p, s = eng.predict_specs(specs if bf16 else specs[:128])
+        (call,) = rec.find("engine.call")
+        batches = call.attrs["padded_rows"] // eng.batch_size
+        assert call.attrs["launches"]["bias_relu_pool_lrn_halves"] == \
+            2 * batches * bf16
+    eng = engine.InferenceEngine(init_params(0))
+    p, s = eng.predict_specs(specs)
+    model, w_s2d = eng._replicas[0]
+
+    def joined(ep, vis, rev):
+        pre = fused_conv1.conv1_fused_raster(ep, vis, rev, w_s2d)
+        h = k2(pre, model.conv1.bias).permute(0, 3, 1, 2)
+        h = torch.cat(alexnet.conv_halves(model.conv2, h.chunk(2, dim=1),
+                                          bias=False), dim=1)
+        h = k2(h.permute(0, 2, 3, 1), model.conv2.bias).permute(0, 3, 1, 2)
+        for stage in model.stages()[2:]:
+            h = stage(h)
+        return h
+    ep, vis, rev = (torch.from_numpy(a).to(cuda)
+                    for a in rasterize.specs_to_endpoints(specs))
+    preds, softs = [], []
+    with torch.inference_mode():
+        for i in range(0, len(specs), eng.batch_size):
+            seg = (ep[i:i + 128], vis[i:i + 128], rev[i:i + 128])
+            want = joined(*seg)
+            assert torch.equal(engine.fused_logits(model, w_s2d, *seg), want)
+            preds.append(want.argmax(dim=1))
+            softs.append(torch.softmax(want, dim=1).amax(dim=1))
+    assert np.array_equal(p, torch.cat(preds).cpu().numpy())
+    assert np.array_equal(s, torch.cat(softs).float().cpu().numpy())
+
+
 @pytest.mark.parametrize("s2d", [True, False])
 def test_device_step_graph_equals_eager(cuda, s2d):
     """fit_device's step (make_device_step) at keep_prob 1 without
@@ -925,7 +1077,7 @@ def test_device_step_graph_equals_eager(cuda, s2d):
     assert {k: v - before[k] for k, v in _launches().items()} == {
         "render_raster": 0 if s2d else steps, "bias_relu_pool_lrn": 2 * steps,
         "bias_relu_pool_lrn_backward": 2 * steps, "conv1_fused_raster": 0,
-        "specs_endpoints": 0}
+        "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}
     assert abs(got - want) <= 1e-6 * abs(want)
     for (k, p), q in zip(model.named_parameters(), twin.parameters()):
         assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k

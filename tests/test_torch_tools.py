@@ -155,9 +155,9 @@ def test_roofline_full_prefix_is_the_engine_step(capsys):
                             for n in range(6))]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    # conv3 and conv4 hand on the two halves of the bf16 network's split
-    # groups
-    assert shapes == [(4, 57, 57, 48), (4, 27, 27, 96), (4, 256, 13, 13),
+    # conv1's block (K2's two NHWC halves), conv3 and conv4 hand on the two
+    # halves of the bf16 network's split groups
+    assert shapes == [(4, 57, 57, 48), [(4, 27, 27, 48)] * 2, (4, 256, 13, 13),
                       [(4, 192, 13, 13)] * 2, [(4, 192, 13, 13)] * 2,
                       (4, 256, 6, 6)]
     out = roof.main(["--device", "cpu", "--batch", "2", "--reps", "1"])

@@ -133,7 +133,9 @@ def test_engine_call_spans_on_the_cpu(params, case):
     """An 11-row call at batch 4, chunk 2 (SPAN_CASES). engine.call holds
     its rows, padding, dispatches, its network (AlexNet's weights: no
     tokens), the bf16 network's three split grouped layers and launch
-    deltas (none on the CPU); its children are the
+    deltas: no kernel's on the CPU, and K2's calls in a split form, which
+    the CPU counts too, two a batch (conv1's tail writes halves, conv2's
+    reads them); its children are the
     padding, one endpoint span a dispatch, one dispatch span a dispatch a
     device with the rows that device's launches take, the sync and the
     unshard; the outputs equal those made with recording off, bit for
@@ -148,7 +150,8 @@ def test_engine_call_spans_on_the_cpu(params, case):
     assert call.attrs == {
         "rows": 11, "padded_rows": padded, "dispatches": len(host_rows),
         "graphed": False, "network": "alexnet", "split_groups": 3,
-        "launches": {w.__name__: 0 for w in graphs.kernel_wrappers()}}
+        "launches": {**{w.__name__: 0 for w in graphs.kernel_wrappers()},
+                     "bias_relu_pool_lrn_halves": 2 * padded // 4}}
     kids = rec.children(call)
     assert [s.name for s in sorted(kids, key=lambda s: s.start_ns)] == (
         ["engine.pad"]
@@ -334,8 +337,9 @@ def test_device_spans_past_the_pool(cuda, monkeypatch):
 @pytest.mark.parametrize("bf16", [True, False])
 def test_call_launches_equal_the_plan(cuda, params, bf16):
     """engine.call's launch deltas: K3 once and K2 twice a batch a card
-    (the exact engine on the card takes the fused route too), and the
-    endpoints kernel once a dispatch a card."""
+    (the exact engine on the card takes the fused route too), both of the
+    bf16 engine's K2 launches in a split form, none of the exact one's,
+    and the endpoints kernel once a dispatch a card."""
     eng = InferenceEngine(params, bf16=bf16)
     eng.warmup()
     n = 11 * 128 + 5
@@ -347,6 +351,7 @@ def test_call_launches_equal_the_plan(cuda, params, bf16):
     want = {w.__name__: 0 for w in graphs.kernel_wrappers()}
     want.update({"conv1_fused_raster": batches,
                  "bias_relu_pool_lrn": 2 * batches,
+                 "bias_relu_pool_lrn_halves": 2 * batches if bf16 else 0,
                  "specs_endpoints": (len(chunks) + singles)
                  * len(eng.devices)})
     assert call.attrs["launches"] == want
