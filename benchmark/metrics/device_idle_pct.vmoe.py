@@ -1,0 +1,15 @@
+"""device_idle_pct.predict in the V-MoE's cell, by its own reader, under a
+name of the V-MoE's own: the card's share of the traced slice (chr1-3) in
+which no device operation runs, in %; None unless the span slice's
+engine.call spans say that the engine ran the V-MoE (network
+'vmoe_b16')."""
+
+from benchmark import spans, spec
+
+
+def read(ctx):
+    rec = spans.record(ctx)
+    if rec is None or not any(s.attrs.get("network") == "vmoe_b16"
+                              for s in rec.find("engine.call", device=False)):
+        return None
+    return spec.metric("device_idle_pct.predict").read(ctx)

@@ -89,10 +89,18 @@ Phases, each of which fails the run with a non-zero exit on any check:
      with --exact), the graft entry's fused step (__graft_entry_torch__)
      against its CPU run (at the bf16 bar on the bar's weights; on its
      default weights the f32 network on both, and the card's bf16 within
-     the CPU's own bf16-to-f32 departure), and dryrun_multichip(1).
+     the CPU's own bf16-to-f32 departure), and dryrun_multichip(1);
+ 10. V-MoE-B/16 at its published widths (the benchmark's configuration and
+     fitted weights): the four MoE kernels (route, dispatch, bias-GELU,
+     combine) against their plain versions at the engine's batch of 128
+     on skewed routing with an empty expert and on even routing, timed
+     against their bounds and beside a PyTorch call each; then the engine
+     on those weights, its launch counts zeroed: graphs bit for bit
+     against the eager step on 8,192 specs, launches per batch x batches,
+     every routed row in the experts' histogram, images/s graphed.
 Launches count kernels executed: a graph replay adds the launches its
 capture held (svision_tpu_torch/graphs.py), and every run of phases 3-8
-holds them to launches per batch or step x the batches or steps run, and
+and 10 holds them to launches per batch or step x the batches or steps run, and
 the endpoints kernel's per dispatch x the dispatches run (in phase 9, the
 engine's runs; the others' are counted).
 Then it prints one {"kernels": [...]} line, the card's name and power
@@ -1124,6 +1132,10 @@ PER_BATCH = {
     "cpu": {"render_raster": 0, "bias_relu_pool_lrn": 0,
             "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0,
             "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}}
+# the V-MoE's kernel wrappers (ops/moe.py): no AlexNet step launches them
+MOE_WRAPPERS = ("moe_route", "moe_dispatch", "moe_bias_gelu", "moe_combine")
+for per_batch in PER_BATCH.values():
+    per_batch.update(dict.fromkeys(MOE_WRAPPERS, 0))
 # phase 8's modes: engine arguments, and K1's dtype where it runs
 MODES = {
     "bf16_compare": (dict(raster="compare"), None),
@@ -1139,8 +1151,12 @@ PER_BATCH.update({mode: {"render_raster": int(k1 is not None),
                          "bias_relu_pool_lrn_backward": 0,
                          "conv1_fused_raster": 0, "specs_endpoints": 0,
                          "bias_relu_pool_lrn_halves": 0 if "int8" in mode
-                         else 2}
+                         else 2, **dict.fromkeys(MOE_WRAPPERS, 0)}
                   for mode, (_, k1) in MODES.items()})
+# phase 10's V-MoE engine: K1 in bf16 and each MoE kernel once a sparse
+# layer (6 in V-MoE-B/16) a batch
+PER_BATCH["vmoe"] = {**dict.fromkeys(PER_BATCH["cpu"], 0), "render_raster": 1,
+                     **dict.fromkeys(MOE_WRAPPERS, 6)}
 # launches per dispatch of each mode, on each device of the engine: the
 # endpoints of the dispatch's rows, at the head of the replica's step
 PER_DISPATCH = {mode: {"specs_endpoints": int(mode != "cpu")}
@@ -1822,7 +1838,8 @@ def _per_step(k1: int, tails: int) -> dict:
     bias/ReLU/pool/LRN tail (two per conv stack)."""
     return {"render_raster": k1, "bias_relu_pool_lrn": tails,
             "bias_relu_pool_lrn_backward": tails, "conv1_fused_raster": 0,
-            "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}
+            "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0,
+            **dict.fromkeys(MOE_WRAPPERS, 0)}
 
 
 # launches per step of each training run, and per batch of evaluate; the
@@ -1835,7 +1852,8 @@ PER_STEP = {
     "fit_mesh": _per_step(1, 2 * 4),
     "evaluate": {"render_raster": 1, "bias_relu_pool_lrn": 2,
                  "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 0,
-                 "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}}
+                 "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0,
+                 **dict.fromkeys(MOE_WRAPPERS, 0)}}
 
 
 def labeled(n: int, seed: int):
@@ -2598,7 +2616,7 @@ def check_tools(work: str) -> dict:
     # step's prefixes take endpoints made on the host
     assert all((r["launches"][k] > 0) == (
         k not in ("bias_relu_pool_lrn_backward", "specs_endpoints",
-                  "bias_relu_pool_lrn_halves"))
+                  "bias_relu_pool_lrn_halves", *MOE_WRAPPERS))
                for k in r["launches"]), r["launches"]
     out["roofline_exact"] = dict(roof, launches=r["launches"])
     seconds["roofline"] = time.perf_counter() - t0
@@ -2641,6 +2659,207 @@ def check_tools(work: str) -> dict:
     out["runs"], out["seconds"] = runs, seconds
     log(f"phase 9 seconds by check: {seconds}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: V-MoE-B/16
+# ---------------------------------------------------------------------------
+
+# the benchmark's V-MoE configuration: its widths, and its weights' seeding
+# and fit (benchmark/drivers/engine_vmoe.py)
+VMOE_CONFIG = "svision-vmoe-b16-e32-bf16"
+MOE_SOURCE = "svision_tpu_torch/csrc/moe.cu"
+
+
+def vmoe_logits(case: str, t: int, e: int, seed: int = 0):
+    """Router logits f32 [t,e] on the card: 'skewed' (nine tenths of the
+    tokens on experts 7 and 11, as blank patches route, and expert 5 given
+    no row) or 'even' (random)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((t, e), generator=g)
+    if case == "skewed":
+        x[: t * 9 // 10, 7] += 6.0
+        x[: t * 9 // 10, 11] += 5.0
+        x[:, 5] = -1e4
+    return x.cuda()
+
+
+def check_moe_kernels(m: dict) -> dict:
+    """The four MoE kernels (ops/moe.py) against their plain versions on
+    the card at the engine's batch of B images of the V-MoE's widths m,
+    on skewed routing with an empty expert and on even routing: the
+    route's experts, ranks, bases and offsets bit for bit and its gates
+    within f32 rounding of exp and the softmax's sum (2e-6 relative);
+    dispatch and combine bit for bit; the bias-GELU within one bf16 step
+    (the card's erff and torch's erf may round an f32 apart). Each timed
+    (median of spread_ms) against its least time (work_vmoe.route_stages'
+    bytes; the route's, latency-bound, its tensors' bytes), beside its
+    plain version and one PyTorch call that does part of its work
+    (`library`)."""
+    import torch
+    import torch.nn.functional as F
+    from benchmark import work_vmoe
+    from benchmark.work_vit import tokens
+    from svision_tpu_torch.ops import moe
+    t, d, mm = B * tokens(m), m["hidden"], m["mlp"]
+    e, k = m["experts"], m["top_k"]
+    stages = work_vmoe.route_stages(m, B, "bfloat16")
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+    u, y, b1, b2 = draw(t, d), draw(t, d), draw(e, mm), draw(e, d)
+    out = {name: [] for name in ("moe_route", "moe_dispatch",
+                                 "moe_bias_gelu", "moe_combine")}
+
+    def row(name, case, err, fn, plain, library, lib_name, bound):
+        b, by = least(bound, "float32")
+        ms = spread_ms([fn])["median"]
+        out[name].append(dict(
+            dtype="bfloat16", case=case, rows=B, shape=[t, d, mm, e, k],
+            max_abs_err=err, ms=ms,
+            plain_ms=time_ms(plain, reps=PLAIN_REPS),
+            library_ms=spread_ms([library])["median"], library=lib_name,
+            bound_ms=b, bound_by=by, bound_fraction=b / ms))
+        log(f"{name} ({case}): {out[name][-1]}")
+
+    for case in ("skewed", "even"):
+        logits = vmoe_logits(case, t, e)
+        rows = torch.zeros(e, dtype=torch.int64, device="cuda")
+        got = moe.moe_route(logits, k, rows)
+        want_rows = torch.zeros_like(rows)
+        want = moe.moe_route_plain(logits, k, want_rows)
+        for name, a, w in zip(("top", "gates", "ranks", "bases", "offsets"),
+                              got, want):
+            if name == "gates":
+                torch.testing.assert_close(a, w, rtol=2e-6, atol=1e-30)
+            else:
+                assert torch.equal(a, w), f"moe_route ({case}): {name}"
+        assert torch.equal(rows, want_rows) and int(rows.sum()) == t * k
+        if case == "skewed":
+            assert int(rows[5]) == 0 and int(rows.max()) > t // 2, rows
+        top, gates, ranks, bases, offsets = got
+        route_bytes = sum(x.nbytes for x in (logits, *got, rows))
+        row("moe_route", case, float((got[1] - want[1]).abs().max()),
+            lambda: moe.moe_route(logits, k),
+            lambda: moe.moe_route_plain(logits, k),
+            lambda: torch.topk(logits, k), "torch.topk", (route_bytes, 0))
+
+        xs, slots = moe.moe_dispatch(u, top, ranks, bases)
+        want_xs, want_slots = moe.moe_dispatch_plain(u, top, ranks, bases)
+        assert torch.equal(xs, want_xs) and torch.equal(slots, want_slots), \
+            f"moe_dispatch ({case})"
+        src = torch.empty(t * k, dtype=torch.int64, device="cuda")
+        src[slots.reshape(-1).long()] = torch.arange(
+            t, device="cuda").repeat_interleave(k)
+        row("moe_dispatch", case, 0.0,
+            lambda: moe.moe_dispatch(u, top, ranks, bases),
+            lambda: moe.moe_dispatch_plain(u, top, ranks, bases),
+            lambda: u.index_select(0, src), "torch.index_select",
+            stages["dispatch"])
+
+        h = draw(t * k, mm)
+        want_h = moe.moe_bias_gelu_plain(h.clone(), b1, offsets)
+        got_h = moe.moe_bias_gelu(h.clone(), b1, offsets)
+        torch.testing.assert_close(got_h.float(), want_h.float(),
+                                   rtol=2 ** -7, atol=1e-30)
+        assert float((got_h != want_h).float().mean()) < 1e-3, case
+        row("moe_bias_gelu", case,
+            float((got_h.float() - want_h.float()).abs().max()),
+            lambda: moe.moe_bias_gelu(h, b1, offsets),
+            lambda: moe.moe_bias_gelu_plain(h, b1, offsets),
+            lambda: F.gelu(h), "torch.nn.functional.gelu",
+            stages["bias_gelu"])
+
+        h2 = draw(t * k, d)
+        assert torch.equal(moe.moe_combine(y, h2, b2, top, gates, slots),
+                           moe.moe_combine_plain(y, h2, b2, top, gates,
+                                                 slots)), \
+            f"moe_combine ({case})"
+        flat = slots.reshape(-1).long()
+        row("moe_combine", case, 0.0,
+            lambda: moe.moe_combine(y, h2, b2, top, gates, slots),
+            lambda: moe.moe_combine_plain(y, h2, b2, top, gates, slots),
+            lambda: h2.index_select(0, flat), "torch.index_select",
+            stages["combine"])
+    return out
+
+
+def check_vmoe(seed: int = 2_000_001) -> dict:
+    """Phase 10: V-MoE-B/16 at its published widths (the benchmark's
+    configuration VMOE_CONFIG and its fitted weights of `seed`). The MoE
+    kernels against their plain versions (check_moe_kernels); then the
+    default engine on those weights, warmed up: its launch counts zeroed,
+    a graphed call on 8,192 specs and the eager step on them, bit for bit
+    alike, K1 once a batch, each MoE kernel once a sparse layer a batch
+    and the endpoints kernel once a dispatch; expert_rows() every routed
+    row of the two once (the load on each expert); images/s graphed."""
+    import torch
+    from benchmark import spec
+    from benchmark.drivers import engine_vmoe
+    from benchmark.work_vit import tokens
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    m = spec.config(spec.load(), VMOE_CONFIG)["model"]
+    out = {"kernels": check_moe_kernels(m)}
+    params = {k: v.cpu().numpy()
+              for k, v in engine_vmoe.params(m, seed, torch.device("cuda"))
+              .items()}
+    t0 = time.perf_counter()
+    eng = InferenceEngine(params, batch_size=B)
+    assert eng.network == "vmoe_b16" and eng.compute_dtype == torch.bfloat16
+    eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    eng.expert_rows()
+    specs = random_specs(8192, seed=3)
+    with counted() as run:
+        p, s = eng.predict_specs(specs)
+        with torch.inference_mode():
+            ep, es = eng._predict(specs, graphed=False)
+    assert np.array_equal(p, ep) and np.array_equal(s, es), \
+        "V-MoE engine: graphs differ from the eager step"
+    hold_launches("engine vmoe", "vmoe", run, warmups=0)
+    rows = eng.expert_rows()
+    routed = run["batches"]["real"] * B * tokens(m) * m["top_k"]
+    assert rows.shape == (len(m["moe_layers"]), m["experts"])
+    assert (rows.sum(1) == routed).all(), (rows.sum(1), routed)
+    assert np.isfinite(s).all() and ((s > 0) & (s <= 1)).all()
+    rate = best_rate(eng, specs)
+    out["engine"] = dict(
+        images_per_s=rate, warmup_s=warmup_s, launches=run["launches"],
+        batches=run["batches"], k1_dtype="bf16", n=int(specs.shape[0]),
+        expert_rows=rows.tolist(),
+        load_max_pct=[float(100 * r.max() / r.mean()) for r in rows],
+        idle_experts=[int((r == 0).sum()) for r in rows],
+        class_split=np.bincount(p, minlength=5).tolist())
+    log(f"engine vmoe ({REPORT['device']['nvidia_smi']}): {out['engine']}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_rows(kernels: dict, runs: dict, build: dict) -> list:
+    """The kernels line's rows of the four MoE kernels: each one's
+    launches in every main-path run (the V-MoE engine's alone runs them),
+    its error against its plain version, and its times and bound on
+    skewed routing, the traffic's (phase 10)."""
+    rows = []
+    for name, variants in kernels.items():
+        main = next(v for v in variants if v["case"] == "skewed")
+        launches = {run: r["launches"][name] for run, r in runs.items()}
+        rows.append(dict(
+            name=name, route="cuda", source=MOE_SOURCE, replaces=None,
+            launches=sum(launches.values()), launches_by_run=launches,
+            batches_by_run={run: r["batches"] for run, r in runs.items()},
+            max_abs_err=max(v["max_abs_err"] for v in variants),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], library=main["library"],
+            at=dict(dtype=main["dtype"], shape=main["shape"]),
+            variants=variants, ptxas=build["ptxas"][MOE_SOURCE],
+            note="no TPU kernel: the JAX package runs no mixture of experts"))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2796,6 +3015,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         REPORT["tools"] = check_tools(work)
     log(f"phase 9: the tools ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    REPORT["vmoe"] = check_vmoe()
+    log(f"phase 10: the V-MoE ok ({time.perf_counter() - t0:.1f} s)")
     REPORT["total_s"] = time.perf_counter() - t_all
     log(f"chip_smoke: {REPORT['total_s']:.1f} s in all")
 
@@ -2807,7 +3029,9 @@ def main(argv=None) -> int:
     runs.update(REPORT["train"]["runs"])
     runs.update({f"engine_{k}": REPORT["modes"][k] for k in MODES})
     runs.update(REPORT["tools"]["runs"])
+    runs["engine_vmoe"] = REPORT["vmoe"]["engine"]
     line = kernel_line(REPORT["kernels"], runs, build)
+    line["kernels"] += moe_rows(REPORT["vmoe"]["kernels"], runs, build)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)

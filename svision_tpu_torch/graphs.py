@@ -10,7 +10,8 @@ it enqueued every kernel.
 
 Launch counts. Each kernel wrapper (ops/raster_kernel.render_raster,
 ops/fused_pool_lrn.bias_relu_pool_lrn and bias_relu_pool_lrn_backward,
-ops/fused_conv1.conv1_fused_raster, ops/endpoints.specs_endpoints) ticks
+ops/fused_conv1.conv1_fused_raster, ops/endpoints.specs_endpoints, and
+ops/moe's moe_route, moe_dispatch, moe_bias_gelu and moe_combine) ticks
 its `launches` counter in Python when it enqueues its kernel, and K2's
 split forms tick fused_pool_lrn.bias_relu_pool_lrn_halves besides. A
 capture ticks it though nothing runs, and a replay runs the kernels without a
@@ -39,7 +40,7 @@ import torch
 
 from svision_tpu_torch import trace
 from svision_tpu_torch.ops import (endpoints, fused_conv1, fused_pool_lrn,
-                                   raster_kernel)
+                                   moe, raster_kernel)
 
 # eager steps a trainer runs before it captures its step (Pieces)
 WARMUP_STEPS = 3
@@ -52,7 +53,8 @@ def kernel_wrappers() -> Tuple[Callable, ...]:
     return (raster_kernel.render_raster, fused_pool_lrn.bias_relu_pool_lrn,
             fused_pool_lrn.bias_relu_pool_lrn_backward,
             fused_conv1.conv1_fused_raster, endpoints.specs_endpoints,
-            fused_pool_lrn.bias_relu_pool_lrn_halves)
+            fused_pool_lrn.bias_relu_pool_lrn_halves, moe.moe_route,
+            moe.moe_dispatch, moe.moe_bias_gelu, moe.moe_combine)
 
 
 class Graph:

@@ -41,7 +41,12 @@ above, a ViT's (models/vit.py, whose leaves start with vit/) build a
 replica that renders K1's raster in the compute dtype (the kernel on the
 card, its plain version on the CPU) into the ViT, in bf16 or, under
 bf16=False, in f32 with TF32 off. The other modes are AlexNet's: int8,
-fast=False and the rasters other than 's2d' raise for ViT weights.
+fast=False and the rasters other than 's2d' raise for ViT weights. A
+V-MoE's leaves (a ViT's with routers) build the same replica with its
+sparse layers (ops/moe.py: kernels on the card, in bf16 only, so that
+bf16=False raises there; their plain versions on the CPU, in either
+precision); each replica keeps a histogram of the rows each expert took,
+which expert_rows() reads.
 
 The region aggregation that follows prediction is host code and lives in
 infer/aggregate.py, so workers that run it never import torch.
@@ -147,7 +152,8 @@ class InferenceEngine:
     bf16, fast, raster and int8 select the numeric mode as the JAX engine's
     arguments do (module docstring); int8, fast, raster and compute_dtype
     (torch.int8, bfloat16 or float32) say which one it runs. network
-    ('alexnet' or 'vit_b16') says which network the weights hold."""
+    ('alexnet', 'vit_b16' or 'vmoe_b16') says which network the weights
+    hold."""
 
     _SENTINEL = np.array([[0, 1, 0, 1, 1, 1, 1, 1, 1, 1, 2, 2]],
                          dtype=np.int64)   # create_batch.py:55
@@ -160,12 +166,14 @@ class InferenceEngine:
                  raster: str = "s2d", int8: bool = False):
         if raster not in RASTERS:
             raise ValueError(f"raster {raster!r} is not one of {RASTERS}")
-        self.network = "vit_b16" if vit.is_vit(params) else "alexnet"
-        if self.network == "vit_b16" and (int8 or not fast or raster != "s2d"):
+        self.network = ("vmoe_b16" if vit.is_vmoe(params) else
+                        "vit_b16" if vit.is_vit(params) else "alexnet")
+        if self.network != "alexnet" and (int8 or not fast
+                                          or raster != "s2d"):
             raise ValueError(
                 "int8, fast=False and raster other than 's2d' are AlexNet's "
-                f"modes; these are ViT weights (int8={int8}, fast={fast}, "
-                f"raster={raster!r})")
+                f"modes; these are {self.network} weights (int8={int8}, "
+                f"fast={fast}, raster={raster!r})")
         self.devices = tuple(resolve_device(d)
                              for d in (devices if devices else (device,)))
         self.device = self.devices[0]
@@ -200,9 +208,17 @@ class InferenceEngine:
         card; the exact engine on any other device keeps the unfolded
         network on K1's images, the JAX package's --exact form. ViT
         weights build the ViT with its normalisation folded in
-        (vit.fold_params), in the compute dtype, on K1's raster."""
+        (vit.fold_params), in the compute dtype, on K1's raster; V-MoE
+        weights likewise, but in f32 only off the card: the MoE's kernels
+        and the grouped products take bf16."""
+        if (self.network == "vmoe_b16" and not self.bf16
+                and device_type == "cuda"):
+            raise ValueError("V-MoE weights run in bf16 on the card: the "
+                             "MoE kernels and torch._grouped_mm take bf16 "
+                             "alone, so bf16=False (--exact) runs on the CPU "
+                             "only")
         host = {k: np.asarray(v) for k, v in params.items()}
-        if self.network == "vit_b16":
+        if self.network != "alexnet":
             host = vit.cast_params(vit.fold_params(host), self.compute_dtype)
             return [(vit.VisionTransformer.from_params(host, device=dev), None)
                     for dev in self.devices]
@@ -283,27 +299,30 @@ class InferenceEngine:
         t.start()
         return t
 
+    def _logits(self, model, w_s2d, ep, vis, rev) -> torch.Tensor:
+        """One replica's logits of a batch's endpoints. A replica that keeps
+        w_s2d (_replicas_for) runs the fused route; a ViT or V-MoE replica
+        reads K1's raster."""
+        if self.network != "alexnet":
+            return model(render_raster_kernel(ep, vis, rev,
+                                              dtype=model.compute_dtype))
+        if w_s2d is not None:
+            return fused_logits(model, w_s2d, ep, vis, rev)
+        if not self.fast:
+            return model(render_images(ep, vis, rev, dtype=torch.float32))
+        if self.raster == "pallas":
+            raster = render_raster_kernel(ep, vis, rev, dtype=torch.bfloat16)
+        elif self.raster == "einsum":
+            raster = rasterize.render_raster_einsum(ep, vis, rev)
+        else:
+            raster = rasterize.render_raster(ep, vis, rev)
+        return model.forward_raster(raster)
+
     def _step(self, model, w_s2d, ep, vis, rev
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One replica's batch (batch_size // devices rows) on its device ->
-        (argmax, max softmax). A replica that keeps w_s2d (_replicas_for)
-        runs the fused route; a ViT replica reads K1's raster."""
-        if self.network == "vit_b16":
-            logits = model(render_raster_kernel(ep, vis, rev,
-                                                dtype=model.compute_dtype))
-        elif w_s2d is not None:
-            logits = fused_logits(model, w_s2d, ep, vis, rev)
-        elif not self.fast:
-            logits = model(render_images(ep, vis, rev, dtype=torch.float32))
-        else:
-            if self.raster == "pallas":
-                raster = render_raster_kernel(ep, vis, rev,
-                                              dtype=torch.bfloat16)
-            elif self.raster == "einsum":
-                raster = rasterize.render_raster_einsum(ep, vis, rev)
-            else:
-                raster = rasterize.render_raster(ep, vis, rev)
-            logits = model.forward_raster(raster)
+        (argmax, max softmax)."""
+        logits = self._logits(model, w_s2d, ep, vis, rev)
         # soft[argmax] == max(soft): softmax is monotone
         return logits.argmax(dim=1), torch.softmax(logits, dim=1).amax(dim=1)
 
@@ -347,6 +366,62 @@ class InferenceEngine:
                 self.warmup()
             return self._predict(np.asarray(specs), graphed)
 
+    def expert_rows(self) -> Optional[np.ndarray]:
+        """A V-MoE's rows each expert took in each sparse layer since the
+        last call (every batch's, the sentinel padding and warm-up's
+        included), int64 [sparse layers, experts] summed over the replicas,
+        then zeroed; counted, while trace.py records, as the counters
+        moe.expert_rows/<layer>/<expert> (the network's layer index). None
+        for another network. It waits for the cards: call it between
+        calls, never inside one."""
+        if self.network != "vmoe_b16":
+            return None
+        with self._lock:
+            out = 0
+            for model, _ in self._replicas:
+                out = out + model.expert_rows.cpu().numpy()
+                model.expert_rows.zero_()
+        layers = self._replicas[0][0].widths.moe_layers
+        for layer, row in zip(layers, out):
+            for e, n in enumerate(row.tolist()):
+                trace.count(f"moe.expert_rows/{layer}/{e}", n)
+        return out
+
+    @torch.inference_mode()
+    def expert_choices(self, specs: np.ndarray) -> Optional[List[np.ndarray]]:
+        """A V-MoE's routing of specs [N,12]: for each sparse layer, int32
+        [N, tokens, k], the experts each token of each image takes, from an
+        eager pass of the first replica's network over specs in its batches
+        (an image's routing does not depend on its batchmates; the graphs
+        give the eager step's bits). The pass runs the network's logits
+        alone (_logits), not the step that answers a call, so that it
+        reads the routing of a step that answers wrongly too. None for
+        another network, or when the network routed another number of
+        tokens than the specs hold."""
+        if self.network != "vmoe_b16":
+            return None
+        n = specs.shape[0]
+        sub = self.batch_size // len(self.devices)
+        model = self._replicas[0][0]
+        padded = np.concatenate([np.asarray(specs, np.int64), np.repeat(
+            self._SENTINEL, -n % sub, 0)])
+        kept = []
+        with self._lock:
+            model.keep_routing(kept)
+            try:
+                for i in range(0, len(padded), sub):
+                    self._logits(model, None, *specs_endpoints(
+                        torch.from_numpy(padded[i:i + sub]).to(self.device)))
+            finally:
+                model.keep_routing(None)
+        w = model.widths
+        layers = len(w.moe_layers)
+        out = [torch.cat(kept[j::layers]).cpu().numpy()
+               for j in range(layers)]
+        if any(r.shape != (len(padded) * w.tokens, w.top_k) for r in out):
+            return None
+        return [r.reshape(len(padded), w.tokens, w.top_k)[:n] for r in out]
+
     def _host_rows(self, specs: np.ndarray, batches: int) -> List[torch.Tensor]:
         """One dispatch's raw specs, int64 [devices, batches x rows a
         replica, 12], device d's batch of every round contiguous in [d];
@@ -371,9 +446,10 @@ class InferenceEngine:
         endpoints are made on the device, at the head of its step. Traced
         as the span engine.call (trace.py), with the rows, the padded rows,
         the dispatches, the network, a ViT's tokens (padded rows x tokens
-        an image), the grouped layers the network runs split
-        (AlexNet.split_groups; none in a ViT) and each kernel wrapper's
-        launches during the call."""
+        an image), a V-MoE's experts, top_k, moe_layers and routed_rows
+        (padded rows x tokens x k x sparse layers), the grouped layers the
+        network runs split (AlexNet.split_groups; none in a ViT) and each
+        kernel wrapper's launches during the call."""
         n = specs.shape[0]
         if n == 0:
             return np.zeros(0, np.int64), np.zeros(0, np.float32)
@@ -386,8 +462,14 @@ class InferenceEngine:
             if call:
                 total = sum(sizes) * self.batch_size
                 model = self._replicas[0][0]
-                if self.network == "vit_b16":
+                if self.network != "alexnet":
                     call.set(tokens=total * model.tokens)
+                if self.network == "vmoe_b16":
+                    w = model.widths
+                    call.set(experts=w.experts, top_k=w.top_k,
+                             moe_layers=list(w.moe_layers),
+                             routed_rows=total * model.tokens * w.top_k
+                             * len(w.moe_layers))
                 call.set(rows=n, padded_rows=total, dispatches=len(sizes),
                          graphed=graphed, network=self.network,
                          split_groups=model.split_groups,

@@ -54,6 +54,13 @@ ENTRIES = {
     "svt_conv1_fused_raster": ("conv1_raster.cu",
                                [_P, _P, _P, _P, _P, _I, _I, _P]),
     "svt_specs_endpoints": ("specs_endpoints.cu", [_P, _P, _P, _P, _I, _P]),
+    "svt_moe_route": ("moe.cu", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _P]),
+    "svt_moe_dispatch": ("moe.cu", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P]),
+    "svt_moe_bias_gelu": ("moe.cu", [_P, _P, _P, _I, _I, _I, _P]),
+    "svt_moe_combine": ("moe.cu", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _P]),
 }
 SOURCES = tuple(sorted({src for src, _ in ENTRIES.values()}))
 

@@ -180,7 +180,7 @@ def test_install_carries_the_command_and_kernel_sources(installed):
         os.path.join(ROOT, "svision_tpu_torch", "csrc", "*.cu*")))
     got = sorted(os.listdir(os.path.join(installed["site"],
                                          "svision_tpu_torch", "csrc")))
-    assert got == want and len(want) == 7
+    assert got == want and len(want) == 8
 
 
 def test_installed_port_matches_installed_jax(runs):

@@ -638,15 +638,19 @@ def test_train_step_reaches_every_parameter(cuda, s2d, dtype):
         assert not torch.equal(v.detach(), start[k]), f"{k}: not updated"
 
 
+# the V-MoE's kernel wrappers (ops/moe.py): AlexNet's steps launch none
+MOE_WRAPPERS = ("moe_route", "moe_dispatch", "moe_bias_gelu", "moe_combine")
 # launches per batch of each engine mode's step, and K2's launches in a
 # split form (the bf16 network's); the endpoints kernel runs once a
 # dispatch (_dispatches)
 PER_BATCH = {True: {"render_raster": 0, "bias_relu_pool_lrn": 2,
                     "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
-                    "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 2},
+                    "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 2,
+                    **dict.fromkeys(MOE_WRAPPERS, 0)},
              False: {"render_raster": 0, "bias_relu_pool_lrn": 2,
                      "bias_relu_pool_lrn_backward": 0, "conv1_fused_raster": 1,
-                     "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}}
+                     "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0,
+                     **dict.fromkeys(MOE_WRAPPERS, 0)}}
 
 
 def _dispatches(eng, n):
@@ -899,7 +903,8 @@ def test_engine_mode_graphs_equal_eager(cuda, mode):
              "bias_relu_pool_lrn_halves")
     assert got == {"bias_relu_pool_lrn_backward": 0,
                    "specs_endpoints": per_dispatch * dispatches,
-                   **{k: v * batches for k, v in zip(names, per_batch)}}
+                   **{k: v * batches for k, v in zip(names, per_batch)},
+                   **dict.fromkeys(MOE_WRAPPERS, 0)}
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -1077,7 +1082,8 @@ def test_device_step_graph_equals_eager(cuda, s2d):
     assert {k: v - before[k] for k, v in _launches().items()} == {
         "render_raster": 0 if s2d else steps, "bias_relu_pool_lrn": 2 * steps,
         "bias_relu_pool_lrn_backward": 2 * steps, "conv1_fused_raster": 0,
-        "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0}
+        "specs_endpoints": 0, "bias_relu_pool_lrn_halves": 0,
+        **dict.fromkeys(MOE_WRAPPERS, 0)}
     assert abs(got - want) <= 1e-6 * abs(want)
     for (k, p), q in zip(model.named_parameters(), twin.parameters()):
         assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k
@@ -1141,3 +1147,282 @@ def test_mesh_step_graphs_equal_eager(cuda, keep_prob):
             for k, p in cell.items():
                 q = tcell[k]
                 assert (p - q).abs().max() <= 1e-6 * q.abs().max(), k
+
+
+# ---------------------------------------------------------------------------
+# V-MoE: the MoE kernels (ops/moe.py, csrc/moe.cu) at V-MoE-B/16's widths
+# on the engine's batch of 128 images: T = 128 x 197 tokens, E = 32, k = 2
+# ---------------------------------------------------------------------------
+
+VMOE_T, VMOE_E, VMOE_K, VMOE_D, VMOE_M = 128 * 197, 32, 2, 768, 3072
+
+
+def _vmoe_logits(case, dev, seed=0):
+    """Router logits f32 [T,E] of one routing case: 'skewed' (most tokens
+    on two experts, as blank patches route, and expert 5 given no row),
+    'one' (every token's first expert is expert 3: it takes every row
+    once), 'even' (random) or 'ties' (every logit of a token equal: the
+    lower index wins)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((VMOE_T, VMOE_E), generator=g)
+    if case == "skewed":
+        x[: VMOE_T * 9 // 10, 7] += 6.0
+        x[: VMOE_T * 9 // 10, 11] += 5.0
+        x[:, 5] = -1e4
+    elif case == "one":
+        x[:, 3] += 1e3
+    elif case == "ties":
+        x[:] = 0.25
+    return x.to(dev)
+
+
+@pytest.mark.parametrize("case", ["skewed", "one", "even", "ties"])
+def test_vmoe_route_kernel(cuda, case):
+    """The route kernel against its plain version run on the card: the top
+    experts, ranks, block bases and offsets bit for bit, the gates within
+    f32 rounding of exp and of the softmax's sum (2e-6 relative), and the
+    histogram's rows; one launch a call."""
+    from svision_tpu_torch.ops import moe
+    logits = _vmoe_logits(case, cuda)
+    rows = torch.zeros(VMOE_E, dtype=torch.int64, device=cuda)
+    before = moe.moe_route.launches
+    got = moe.moe_route(logits, VMOE_K, rows)
+    assert moe.moe_route.launches == before + 1
+    want_rows = torch.full_like(rows, 7)
+    want = moe.moe_route_plain(logits, VMOE_K, want_rows)
+    for name, g, w in zip(("top", "gates", "ranks", "bases", "offsets"),
+                          got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "gates":
+            torch.testing.assert_close(g, w, rtol=2e-6, atol=1e-30)
+        else:
+            assert torch.equal(g, w), name
+    assert torch.equal(rows + 7, want_rows)
+    assert int(got[4][-1]) == VMOE_T * VMOE_K
+    if case == "skewed":
+        assert int(rows[5]) == 0
+    if case == "one":
+        assert int(rows[3]) == VMOE_T
+    if case == "ties":
+        assert torch.equal(got[0][:, 0], torch.zeros_like(got[0][:, 0]))
+
+
+@pytest.mark.parametrize("case", ["skewed", "one"])
+def test_vmoe_dispatch_bias_gelu_combine_kernels(cuda, case):
+    """Dispatch and combine against their plain versions on the card, bit
+    for bit (the same f32 operations in the same order); the bias-GELU
+    within one bf16 step (2^-7 relative) of its plain version: the card's
+    erff and torch's erf may round an f32 apart, which can move a bf16
+    rounding by a step. One launch each a call."""
+    from svision_tpu_torch.ops import moe
+    g = torch.Generator(device="cpu").manual_seed(1)
+    u = torch.randn((VMOE_T, VMOE_D), generator=g).to(cuda, torch.bfloat16)
+    y = torch.randn((VMOE_T, VMOE_D), generator=g).to(cuda, torch.bfloat16)
+    b1 = torch.randn((VMOE_E, VMOE_M), generator=g).to(cuda, torch.bfloat16)
+    b2 = torch.randn((VMOE_E, VMOE_D), generator=g).to(cuda, torch.bfloat16)
+    top, gates, ranks, bases, offsets = moe.moe_route(
+        _vmoe_logits(case, cuda), VMOE_K)
+    before = [f.launches for f in (moe.moe_dispatch, moe.moe_bias_gelu,
+                                   moe.moe_combine)]
+    xs, slots = moe.moe_dispatch(u, top, ranks, bases)
+    want_xs, want_slots = moe.moe_dispatch_plain(u, top, ranks, bases)
+    assert torch.equal(xs, want_xs) and torch.equal(slots, want_slots)
+    h = torch.randn((VMOE_T * VMOE_K, VMOE_M), generator=g).to(
+        cuda, torch.bfloat16)
+    want_h = moe.moe_bias_gelu_plain(h.clone(), b1, offsets)
+    assert moe.moe_bias_gelu(h, b1, offsets) is h
+    torch.testing.assert_close(h.float(), want_h.float(), rtol=2 ** -7,
+                               atol=1e-30)
+    assert float((h != want_h).float().mean()) < 1e-3
+    h2 = torch.randn((VMOE_T * VMOE_K, VMOE_D), generator=g).to(
+        cuda, torch.bfloat16)
+    out = moe.moe_combine(y, h2, b2, top, gates, slots)
+    assert torch.equal(out, moe.moe_combine_plain(y, h2, b2, top, gates,
+                                                  slots))
+    assert [f.launches for f in (moe.moe_dispatch, moe.moe_bias_gelu,
+                                 moe.moe_combine)] == [b + 1 for b in before]
+
+
+def _vmoe_weights(dev, seed=2):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def draw(*shape, scale):
+        return (scale * torch.randn(shape, generator=g)).to(dev)
+    return dict(router=draw(VMOE_D, VMOE_E, scale=0.05),
+                w1=draw(VMOE_E, VMOE_D, VMOE_M, scale=0.036).bfloat16(),
+                b1=draw(VMOE_E, VMOE_M, scale=0.1).bfloat16(),
+                w2=draw(VMOE_E, VMOE_M, VMOE_D, scale=0.018).bfloat16(),
+                b2=draw(VMOE_E, VMOE_D, scale=0.1).bfloat16())
+
+
+def test_vmoe_expert_mm_against_f32(cuda):
+    """The grouped product (torch._grouped_mm with its offsets on the card)
+    against an f32 product of each expert's rows, with one expert given no
+    rows: within bf16's rounding of the output (2^-8 relative) plus f32
+    sums in other orders (1e-3 of the row's scale)."""
+    from svision_tpu_torch.ops import moe
+    w = _vmoe_weights(cuda)
+    top, _, _, _, offsets = moe.moe_route(_vmoe_logits("skewed", cuda),
+                                          VMOE_K)
+    assert int(offsets[5] - offsets[4]) == 0
+    x = torch.randn((VMOE_T * VMOE_K, VMOE_D), device=cuda).bfloat16()
+    got = moe.expert_mm(x, w["w1"], offsets).float()
+    want = moe.expert_mm_plain(x.float(), w["w1"].float(), offsets)
+    err = (got - want).abs() - 2 ** -8 * want.abs()
+    assert float(err.max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_vmoe_layer_graph_replays(cuda):
+    """moe_mlp (the sparse layer) captured once in a CUDA graph on static
+    inputs, then replayed as the routing changes under it (every token's
+    first expert made expert 0, then a random router: even), equals its
+    eager result on the same inputs bit for bit, and its histogram gains
+    each replay's rows; the graph holds one launch of each MoE kernel."""
+    from svision_tpu_torch import graphs
+    from svision_tpu_torch.ops import moe
+    w = _vmoe_weights(cuda)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    y = torch.randn((VMOE_T, VMOE_D), generator=g).to(cuda, torch.bfloat16)
+    u = torch.randn((VMOE_T, VMOE_D), generator=g).to(cuda, torch.bfloat16)
+    rows = torch.zeros(VMOE_E, dtype=torch.int64, device=cuda)
+
+    def layer():
+        return moe.moe_mlp(y, u, w["router"], w["w1"], w["b1"], w["w2"],
+                           w["b2"], VMOE_K, rows)
+    with torch.inference_mode():
+        layer()
+        graph = graphs.capture(layer, cuda)
+    assert graph.launches == tuple((f, 1) for f in (
+        moe.moe_route, moe.moe_dispatch, moe.moe_bias_gelu, moe.moe_combine))
+    # positive u through a router of ones on expert 0 (0 elsewhere: expert
+    # 1 wins the ties) puts every token on experts 0 and 1; then a random
+    # router on random u spreads them
+    one = torch.zeros((VMOE_D, VMOE_E))
+    one[:, 0] = 1.0
+    for router, x in ((one, torch.randn((VMOE_T, VMOE_D), generator=g).abs()),
+                      (0.05 * torch.randn((VMOE_D, VMOE_E), generator=g),
+                       torch.randn((VMOE_T, VMOE_D), generator=g))):
+        w["router"].copy_(router.to(cuda))
+        u.copy_(x.to(cuda, torch.bfloat16))
+        rows.zero_()
+        got = graph.replay().clone()
+        replayed = rows.clone()
+        rows.zero_()
+        with torch.inference_mode():
+            want = layer()
+        assert torch.equal(got, want)
+        assert torch.equal(replayed, rows)
+        assert int(rows.sum()) == VMOE_T * VMOE_K
+        if router is one:
+            assert int(rows[0]) == int(rows[1]) == VMOE_T
+    # the last router spreads the rows; the first put every token on 0
+    assert int(rows.max()) < VMOE_T // 4
+
+
+@pytest.mark.parametrize("bad", ["f32", "misaligned", "k"])
+def test_vmoe_wrappers_reject_bad_inputs(cuda, bad):
+    from svision_tpu_torch.ops import moe
+    logits = _vmoe_logits("even", cuda)[:256].contiguous()
+    top, gates, ranks, bases, offsets = moe.moe_route(logits, VMOE_K)
+    u = torch.zeros((256, VMOE_D), dtype=torch.bfloat16, device=cuda)
+    if bad == "f32":
+        with pytest.raises(ValueError):
+            moe.moe_dispatch(u.float(), top, ranks, bases)
+        with pytest.raises(ValueError):
+            moe.moe_route(logits.double(), VMOE_K)
+    elif bad == "misaligned":
+        flat = torch.zeros(256 * VMOE_D + 1, dtype=torch.bfloat16,
+                           device=cuda)
+        with pytest.raises(ValueError):
+            moe.moe_dispatch(flat[1:].view(256, VMOE_D), top, ranks, bases)
+    else:
+        with pytest.raises(ValueError):
+            moe.moe_route(logits, VMOE_E + 1)
+        with pytest.raises(ValueError):
+            moe.moe_combine(u, u, u[:VMOE_E], top, gates, slots=top[:, :1])
+
+
+def test_vmoe_engine_at_published_widths(cuda):
+    """V-MoE-B/16 at its published widths, with the benchmark's fitted
+    weights of one seed, through the engine (bf16; bf16=False raises on
+    the card): its graph replays give the eager step's answers bit for bit
+    (n = 1, 129, a short tail and 8,192); engine.call says network
+    vmoe_b16, the experts, k, sparse layers and routed rows, and launches
+    K1 once a batch, each MoE kernel once a sparse layer a batch and the
+    endpoints kernel once a dispatch; expert_rows() gives every routed row
+    once; on 1,024 rows its routing (expert_choices) is the reference's
+    but for near-ties: every token routed otherwise falls short of the
+    reference's top-k gate mass by at most the cell's tie (engine_vmoe.TIE);
+    and its answers lie within the cell's limits of tests/reference_vmoe.py's
+    given that routing on those near-ties, computed in f32 (TF32 off) on
+    the card from the raster benchmark/reference/raster.py draws."""
+    from benchmark import spec
+    from benchmark.drivers import engine as bench_engine
+    from benchmark.drivers import engine_vmoe
+    from benchmark.reference import raster as ref_raster
+    from bench import random_specs
+    from svision_tpu_torch import trace
+    from svision_tpu_torch.infer.engine import InferenceEngine
+    from tests import reference_vmoe
+    bench = spec.load()
+    model = spec.config(bench, "svision-vmoe-b16-e32-bf16")["model"]
+    params = {k: v.cpu().numpy()
+              for k, v in engine_vmoe.params(model, 1_000_003, cuda).items()}
+    with pytest.raises(ValueError, match="bf16"):
+        InferenceEngine(params, bf16=False)
+    eng = InferenceEngine(params)
+    assert eng.network == "vmoe_b16"
+    w = eng._replicas[0][0].widths
+    assert (w.hidden, w.experts, w.top_k, w.moe_layers) == (
+        768, 32, 2, (1, 3, 5, 7, 9, 11))
+    eng.warmup()
+    eng.expert_rows()
+    for n in (1, 129, 17 * 128 + 5, 8192):
+        specs = random_specs(n, seed=n)
+        with trace.recording([cuda]) as rec:
+            p, s = eng.predict_specs(specs)
+            rows = eng.expert_rows()
+        (call,) = rec.find("engine.call")
+        chunks, singles = eng.plan(n)
+        batches = sum(chunks) + singles
+        routed = batches * 128 * 197 * 2 * 6
+        assert call.attrs["network"] == "vmoe_b16"
+        assert (call.attrs["experts"], call.attrs["top_k"],
+                call.attrs["moe_layers"]) == (32, 2, [1, 3, 5, 7, 9, 11])
+        assert call.attrs["routed_rows"] == routed
+        assert call.attrs["launches"] == {
+            **{k: 0 for k in _launches()}, "render_raster": batches,
+            "specs_endpoints": len(chunks) + singles,
+            **dict.fromkeys(MOE_WRAPPERS, 6 * batches)}
+        assert int(rows.sum()) == routed and rows.shape == (6, 32)
+        assert sum(v for k, v in rec.counts.items()
+                   if k.startswith("moe.expert_rows/")) == routed
+        with torch.inference_mode():
+            ep, es = eng._predict(specs, graphed=False)
+        eng.expert_rows()
+        assert np.array_equal(p, ep) and np.array_equal(s, es), n
+    specs = random_specs(1024, seed=31)
+    p, s = eng.predict_specs(specs)
+    choices = eng.expert_choices(specs)
+    assert [c.shape for c in choices] == [(1024, 197, 2)] * 6
+    raster = ref_raster.draw(*(torch.from_numpy(np.ascontiguousarray(a))
+                               .to(cuda) for a in ref_raster.endpoints(specs)))
+    routed, short = [], []
+    with torch.no_grad(), reference_vmoe.f32_exact():
+        reference_vmoe.logits(params, raster, routed)
+        logits = reference_vmoe.logits(params, raster, routing=[
+            torch.from_numpy(c).to(cuda).long().reshape(-1, 2)
+            for c in choices], tie=engine_vmoe.TIE, shortfall=short)
+    # the engine's routing is the reference's but where bf16 rounding
+    # moves a near-tie: under a tenth of the tokens a layer, each within
+    # the tie of the reference's top-2 gate mass
+    for c, r, miss in zip(choices, routed, short):
+        differ = (torch.from_numpy(c).to(cuda).long().reshape(-1, 2) != r)
+        assert float(differ.any(1).float().mean()) < 0.1
+        assert float(miss.max()) <= engine_vmoe.TIE
+    assert spec.limits("vmoe-b16.genome")["limits"]["route_miss_max"] == \
+        engine_vmoe.TIE
+    got = bench_engine.readings(logits, p, s)
+    bounds = spec.limits("vmoe-b16.genome")["limits"]
+    assert all(got[k] <= v for k, v in bounds.items() if k in got), got
+    assert int((np.bincount(p, minlength=5) >= 0.05 * len(p)).sum()) >= 3
